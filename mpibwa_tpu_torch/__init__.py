@@ -1,12 +1,14 @@
 """mpibwa_tpu_torch: the PyTorch and CUDA port of mpibwa_tpu.
 
 It runs ``cli mem`` (SE and PE) with the device work as torch tensors on
-one NVIDIA GPU and the banded extension DP as a hand-written CUDA kernel
-(csrc/extend.cu). Modules that never import JAX are shared with mpibwa_tpu
-by import (core/, index/, io/, native/, pipeline/native_final.py,
-parallel/chunker.py, parallel/runtime.py); the modules that touch the
-device keep the names of their mpibwa_tpu counterparts. This package
-imports torch and never jax.
+one NVIDIA GPU. The three TPU kernels of mpibwa_tpu are hand-written CUDA
+kernels here: the banded extension DP (csrc/extend.cu), the fused occ4 +
+bwt_extend (csrc/occ4_extend.cu, MPIBWA_PALLAS=1) and the fused backward
+SMEM round (csrc/bwd_round.cu, MPIBWA_BWD=pallas). The package stands on
+its own: it imports torch, never jax and nothing of mpibwa_tpu. The host
+modules (core/, index/, io/, native/, pipeline/native_final.py,
+parallel/) are its own copies under the names of their mpibwa_tpu
+counterparts, and the modules that touch the device keep those names too.
 """
 
 __version__ = "0.1.0"

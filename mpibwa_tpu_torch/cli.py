@@ -10,10 +10,13 @@ MPIBWA_TORCH_DEVICE names another (``cpu`` runs every kernel's plain
 PyTorch version). MPIBWA_EXT=device runs the extension DP in the CUDA
 kernel; native (the default) leaves it to the C runtime. MPIBWA_DEVICES,
 MPIBWA_WORKERS, MPIBWA_SHARD/MPIBWA_NSHARDS and MPIBWA_MICROBATCH mean
-what they mean for mpibwa_tpu.cli. The option parser is a copy of
-mpibwa_tpu/cli.py:main_mem (its parse block cannot be imported alone);
-``index``, ``idx``, ``merge`` and ``mergebychr`` run mpibwa_tpu.cli's
-JAX-free commands. ``launch`` is not ported yet (ROADMAP.md).
+what they mean for mpibwa_tpu.cli. MPIBWA_PALLAS=1 serves the FM
+extension through the fused occ4 CUDA kernel (ops/occ4_cuda.py) and
+MPIBWA_BWD=pallas runs the backward SMEM pass as fused rounds in the
+CUDA kernel of ops/bwd_cuda.py; both are opt-in, as in mpibwa_tpu. The
+package shares nothing with mpibwa_tpu by import: the option parser and
+the ``index``, ``idx``, ``merge`` and ``mergebychr`` commands are its own
+copies. ``launch`` is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -22,9 +25,9 @@ import getopt
 import math
 import sys
 
-from mpibwa_tpu.core import opts as O
-from mpibwa_tpu.core.opts import apply_preset, mem_opt_init
-from mpibwa_tpu.io import headers as hdr
+from mpibwa_tpu_torch.core import opts as O
+from mpibwa_tpu_torch.core.opts import apply_preset, mem_opt_init
+from mpibwa_tpu_torch.io import headers as hdr
 
 
 def _split_two(arg: str):
@@ -188,7 +191,7 @@ def main_mem(argv, by_chr: bool = False):
                     for line in fh:
                         hdr_line = hdr.insert_header(line.rstrip("\n"), hdr_line)
         elif c == "I":
-            from mpibwa_tpu.core.pair import PEStat
+            from mpibwa_tpu_torch.core.pair import PEStat
 
             pes0 = [PEStat(failed=1) for _ in range(4)]
             parts = a.replace(";", ",").split(",")
@@ -216,7 +219,7 @@ def main_mem(argv, by_chr: bool = False):
     if mode is not None:
         apply_preset(opt, mode, explicitly)
     else:
-        from mpibwa_tpu.core.opts import rescale_by_a
+        from mpibwa_tpu_torch.core.opts import rescale_by_a
 
         rescale_by_a(opt, explicitly, preset=None)
     opt.mat = O.fill_scmat(opt.a, opt.b)
@@ -230,7 +233,7 @@ def main_mem(argv, by_chr: bool = False):
     r2 = args[2] if len(args) == 3 else None
     pg_line = hdr.make_pg_line(["mpibwa-tpu", "mem"] + list(argv))
 
-    from mpibwa_tpu.index.format import load_image, load_index
+    from mpibwa_tpu_torch.index.format import load_image, load_index
     import os
 
     # preflight with exit(2) messages (mainParallel.c:604-633)
@@ -341,10 +344,113 @@ def main_mem(argv, by_chr: bool = False):
     return 0
 
 
+def main_index(argv):
+    from mpibwa_tpu_torch.index.build import build_index
+
+    if not argv:
+        print("usage: index <ref.fasta>", file=sys.stderr)
+        return 1
+    build_index(argv[0])
+    return 0
+
+
+def main_idx(argv):
+    """mpiBWAIdx equivalent: pack the index into the flat image."""
+    from mpibwa_tpu_torch.index.format import load_index, save_image
+
+    if not argv:
+        print("usage: idx <ref.fasta>", file=sys.stderr)
+        return 1
+    idx = load_index(argv[0])
+    save_image(idx, argv[0] + ".tpumap")
+    print(f"wrote {argv[0]}.tpumap", file=sys.stderr)
+    return 0
+
+
+def main_merge(argv):
+    """Merge per-shard outputs (written with MPIBWA_SHARD/MPIBWA_NSHARDS)
+    into one file in deterministic chunk order: cli merge OUT SHARD0 SHARD1…
+    (each SHARDk must have its .manifest.json sidecar next to it)."""
+    import json
+
+    from mpibwa_tpu_torch.parallel.runtime import merge_shard_outputs
+
+    if len(argv) < 2:
+        print("usage: merge <out_file> <shard0_out> [<shard1_out> ...]",
+              file=sys.stderr)
+        return 1
+    out, shard_paths = argv[0], argv[1:]
+    sidecars = []
+    for sp in shard_paths:
+        with open(sp + ".manifest.json") as mf:
+            sidecars.append(json.load(mf))
+    sidecars_by_shard = sorted(zip(sidecars, shard_paths),
+                               key=lambda t: t[0]["shard"])
+    n = sidecars_by_shard[0][0]["n_shards"]
+    if len(shard_paths) != n or [m["shard"] for m, _ in sidecars_by_shard] \
+            != list(range(n)):
+        print(f"[E::merge] expected {n} shards 0..{n-1}, got "
+              f"{sorted(m['shard'] for m in sidecars)}", file=sys.stderr)
+        return 1
+    merge_shard_outputs([p for _, p in sidecars_by_shard],
+                        [m["manifest"] for m, _ in sidecars_by_shard],
+                        out, sidecars_by_shard[0][0]["header_len"],
+                        sidecars_by_shard[0][0].get("format", 2))
+    _print_aggregate_times([m for m, _ in sidecars_by_shard])
+    print(f"merged {n} shards into {out}", file=sys.stderr)
+    return 0
+
+
+def _print_aggregate_times(sidecars):
+    """Aggregate per-shard phase times like the reference's end-of-run
+    Allreduce summary (mainParallel.c:3266-3291): min/avg/max per phase."""
+    times = [m.get("times") for m in sidecars]
+    if not all(isinstance(t, dict) for t in times):
+        return
+    keys = sorted({k for t in times for k in t})
+    for k in keys:
+        vs = [float(t.get(k, 0.0)) for t in times]
+        print(f"[M::merge] {k} time across {len(vs)} shards: "
+              f"min {min(vs):.2f}s avg {sum(vs) / len(vs):.2f}s "
+              f"max {max(vs):.2f}s", file=sys.stderr)
+
+
+def main_merge_bychr(argv):
+    """Merge per-shard by-chromosome directories (written with membychr +
+    MPIBWA_SHARD/MPIBWA_NSHARDS): cli mergebychr OUT_DIR SHARD_DIR0 …"""
+    import json
+    import os
+
+    from mpibwa_tpu_torch.parallel.runtime import merge_bychr_outputs
+
+    if len(argv) < 2:
+        print("usage: mergebychr <out_dir> <shard_dir0> [<shard_dir1> ...]",
+              file=sys.stderr)
+        return 1
+    out_dir, shard_dirs = argv[0], argv[1:]
+    sidecars = []
+    for d in shard_dirs:
+        with open(os.path.join(d, "manifest.json")) as mf:
+            sidecars.append(json.load(mf))
+    by_shard = sorted(zip(sidecars, shard_dirs), key=lambda t: t[0]["shard"])
+    n = by_shard[0][0]["n_shards"]
+    if len(shard_dirs) != n or [m["shard"] for m, _ in by_shard] \
+            != list(range(n)):
+        print(f"[E::mergebychr] expected {n} shards 0..{n-1}, got "
+              f"{sorted(m['shard'] for m in sidecars)}", file=sys.stderr)
+        return 1
+    paths = merge_bychr_outputs([d for _, d in by_shard],
+                                [m["manifest"] for m, _ in by_shard],
+                                by_shard[0][0]["files"], out_dir,
+                                by_shard[0][0]["header_len"],
+                                by_shard[0][0].get("format", 2))
+    print(f"merged {n} shards into {len(paths)} files under {out_dir}",
+          file=sys.stderr)
+    return 0
+
+
 
 def main(argv=None):
-    from mpibwa_tpu import cli as jax_cli
-
     argv = argv if argv is not None else sys.argv[1:]
     if not argv:
         print("usage: mpibwa_tpu_torch.cli {mem|membychr|index|idx|merge|"
@@ -355,11 +461,10 @@ def main(argv=None):
         return main_mem(rest)
     if cmd in ("membychr", "mem-by-chr"):
         return main_mem(rest, by_chr=True)
-    shared = {"index": jax_cli.main_index, "idx": jax_cli.main_idx,
-              "merge": jax_cli.main_merge,
-              "mergebychr": jax_cli.main_merge_bychr}
-    if cmd in shared:
-        return shared[cmd](rest)
+    host_cmds = {"index": main_index, "idx": main_idx, "merge": main_merge,
+                 "mergebychr": main_merge_bychr}
+    if cmd in host_cmds:
+        return host_cmds[cmd](rest)
     if cmd == "launch":
         print("launch is not ported to mpibwa_tpu_torch yet; run shards "
               "with MPIBWA_SHARD/MPIBWA_NSHARDS and `merge`", file=sys.stderr)

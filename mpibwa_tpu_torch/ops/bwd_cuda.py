@@ -1,0 +1,263 @@
+"""Fused backward-SMEM rounds: the CUDA kernel (csrc/bwd_round.cu), its
+wrapper, its plain PyTorch round and the loop over a whole backward pass.
+
+The kernel replaces the TPU kernel mpibwa_tpu/ops/pallas_bwd.py
+``_round_call`` (one round of bwt.c:326-345 over every lane) together with
+the block gather and query lookup that ``backward_full`` does ahead of it
+(see the note at the top of the source for its bound and design).
+``DeviceSeeder`` reaches it under MPIBWA_BWD=pallas.
+
+The state of a backward pass is one (7, E) int32 tensor over the E entries
+of all lanes, flat and lane-contiguous, longest match first, at its real
+length: rows ``IK0, IK1, IK2`` (the bi-interval), ``LIVE``, ``I`` (the query
+position the entry extends to next; where an entry died it stays, so a
+mem's start is I + 1), ``LAST`` (start of the lane's last mem, BIG before
+the first) and ``EMITTED`` (the entry is a mem). ``BwdLanes`` holds what
+does not change over the rounds.
+
+``bwd_round_kernel(fm, lanes, state)`` runs one round in place and returns
+the state. On a CUDA tensor it launches the kernel or raises; on a CPU
+tensor it runs the plain version ``bwd_round``. It counts its launches in
+``bwd_round_kernel.launches``. ``run_backward_fused`` drives rounds until no
+entry is live and returns per-lane mem lists.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mpibwa_tpu_torch.ops import _build
+from mpibwa_tpu_torch.ops.occ4_cuda import extend_blocks
+from mpibwa_tpu_torch.ops.seeding_flat import (_seg_excl_cumsum,
+                                               _seg_prev_keeper,
+                                               _segment_start)
+
+IK0, IK1, IK2, LIVE, I, LAST, EMITTED = range(7)
+BIG = 1 << 30  # LAST before a lane's first mem
+# a round over a state with no live entry changes nothing, so the host
+# looks for live entries once per this many rounds
+ROUNDS_PER_SYNC = 8
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_count_lock = threading.Lock()  # seeding runs on a helper thread
+
+
+class BwdLanes(NamedTuple):
+    qrows: torch.Tensor  # (NL, L) uint8 query codes of each lane's read
+    lane_off: torch.Tensor  # (NL + 1,) int32 entry offsets, last = E
+    minv: torch.Tensor  # (NL,) int32 min_intv of each lane
+    lane_e: torch.Tensor  # (E,) int64 lane of each entry
+
+
+def make_lanes(qrows: torch.Tensor, lane_off: torch.Tensor,
+               minv: torch.Tensor, E: int) -> BwdLanes:
+    """lane_e from the offsets (lane_off[-1] == E): the lane of entry e is
+    the first lane that ends past e (zero-length lanes own no entry)."""
+    e_idx = torch.arange(E, device=lane_off.device, dtype=lane_off.dtype)
+    lane_e = torch.searchsorted(lane_off[1:].contiguous(), e_idx, right=True)
+    return BwdLanes(qrows.contiguous(), lane_off.contiguous(),
+                    minv.contiguous(), lane_e)
+
+
+def init_state(ik: torch.Tensor, live: torch.Tensor, x0: torch.Tensor,
+               lane_e: torch.Tensor) -> torch.Tensor:
+    """(7, E) entry state: ik (E, 3) int32, live (E,) bool, x0 (NL,) int32
+    start position of each lane's call."""
+    E = ik.shape[0]
+    st = torch.zeros((7, E), dtype=torch.int32, device=ik.device)
+    st[IK0:IK2 + 1] = ik.t()
+    st[LIVE] = live.to(torch.int32)
+    st[I] = x0[lane_e] - 1
+    st[LAST] = BIG
+    return st
+
+
+def bwd_round(fm, lanes: BwdLanes, state: torch.Tensor) -> torch.Tensor:
+    """Plain version of one round: a new (7, E) state. The per-lane carries
+    of the kernel are segmented scans over the flat arrays here."""
+    E = state.shape[1]
+    L = lanes.qrows.shape[1]
+    lane = lanes.lane_e
+    dev = state.device
+    ik = state[IK0:IK2 + 1].t()
+    live = state[LIVE] != 0
+    i_e = state[I]
+    valid = (i_e >= 0) & (i_e < L)
+    qi = torch.where(
+        valid, lanes.qrows[lane, i_e.clamp(0, L - 1).long()].to(torch.int32),
+        4)
+    has_c = (i_e >= 0) & (qi < 4)
+    ok = extend_blocks(fm, ik, 1)  # (E, 4, 3)
+    okc = ok[torch.arange(E, device=dev), qi.clamp(0, 3).long()]
+    keeper = live & has_c & (okc[:, 2] >= lanes.minv[lane])
+
+    starts = torch.zeros(E, dtype=torch.bool, device=dev)
+    offs = lanes.lane_off[:-1].long()
+    starts[offs[offs < E]] = True
+    seg0 = _segment_start(starts)
+    first_live = live & (_seg_excl_cumsum(live.to(torch.int32), seg0) == 0)
+    emit = first_live & ~keeper & ((i_e + 1) < state[LAST])
+    # the new start reaches the rest of the lane: only entries after the
+    # emitter can still be live
+    em = emit.to(torch.int32)
+    seen = (_seg_excl_cumsum(em, seg0) + em) > 0
+    # dedup (bwt.c:338): a keeper whose previous keeper has the same size
+    has_prev, prev = _seg_prev_keeper(keeper, seg0)
+    append = keeper & (~has_prev | (okc[:, 2] != okc[prev, 2]))
+
+    out = state.clone()
+    out[IK0:IK2 + 1] = torch.where(append[:, None], okc, ik).t()
+    out[LIVE] = append.to(torch.int32)
+    out[I] = torch.where(append, i_e - 1, i_e)
+    out[LAST] = torch.where(seen, i_e + 1, state[LAST])
+    out[EMITTED] = state[EMITTED] | em
+    return out
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("bwd_round")
+    fn = lib.mpibwa_bwd_round
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P,
+                       _I, _P]
+        fn.restype = _I
+    return lib
+
+
+def _check(fm, lanes: BwdLanes, state: torch.Tensor):
+    dev = state.device
+    if fm.idt != torch.int32:
+        raise TypeError("the backward round kernel needs the int32 position "
+                        "path")
+    want = (("state", state, torch.int32), ("qrows", lanes.qrows, torch.uint8),
+            ("lane_off", lanes.lane_off, torch.int32),
+            ("minv", lanes.minv, torch.int32))
+    for name, t, dt in want:
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, state on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    NL = lanes.qrows.shape[0]
+    if (state.dim() != 2 or state.shape[0] != 7 or lanes.qrows.dim() != 2
+            or lanes.lane_off.shape != (NL + 1,)
+            or lanes.minv.shape != (NL,)):
+        raise ValueError("state must be (7, E), qrows (NL, L), lane_off "
+                         "(NL + 1,), minv (NL,)")
+
+
+def bwd_round_kernel(fm, lanes: BwdLanes, state: torch.Tensor
+                     ) -> torch.Tensor:
+    """One backward round over every lane, in place; returns state."""
+    _check(fm, lanes, state)
+    if state.device.type == "cpu":
+        state.copy_(bwd_round(fm, lanes, state))
+        return state
+    if state.device.type != "cuda":
+        raise ValueError(f"no backward round kernel for device "
+                         f"{state.device}")
+    blocks = fm.fused_blocks()
+    if blocks.device != state.device:
+        raise ValueError(f"state is on {state.device}, the index on "
+                         f"{blocks.device}")
+    NL, L = lanes.qrows.shape
+    E = state.shape[1]
+    if NL == 0 or E == 0:
+        return state
+    lib = _lib()
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        rc = lib.mpibwa_bwd_round(
+            blocks.data_ptr(), blocks.shape[0], *fm.l2_host, fm.primary,
+            lanes.qrows.data_ptr(), L, lanes.lane_off.data_ptr(),
+            lanes.minv.data_ptr(), NL, state.data_ptr(), E, stream)
+    if rc != 0:
+        raise RuntimeError(f"backward round kernel launch failed "
+                           f"(cudaError {rc})")
+    with _count_lock:
+        _WRAPPER.launches += 1
+    return state
+
+
+bwd_round_kernel.launches = 0
+# the count stays on this function object even where a caller rebinds the
+# module attribute (e.g. to wrap it)
+_WRAPPER = bwd_round_kernel
+
+
+def pack_emitted(state: torch.Tensor, info_end: torch.Tensor,
+                 lane_e: torch.Tensor) -> np.ndarray:
+    """(n, 6) rows [x0, x1, x2, start, end, lane] of the emitted entries in
+    flat order: lane after lane and, within a lane, in emission order (the
+    slot of a lane's first live entry only moves down over the rounds)."""
+    idx = torch.nonzero(state[EMITTED]).squeeze(1)
+    cols = torch.stack([state[IK0], state[IK1], state[IK2], state[I] + 1,
+                        info_end.to(torch.int32), lane_e.to(torch.int32)],
+                       dim=1)
+    return cols[idx].cpu().numpy()
+
+
+def entry_state(qrows_dev, entry_dev, x0_np, minv_np, lane_off_np
+                ) -> "tuple[BwdLanes, torch.Tensor]":
+    """(lanes, state) of a backward pass from the seeder's tables (see
+    run_backward_fused)."""
+    ik, _, _, live = entry_dev
+    dev = ik.device
+
+    def up(a, dt):
+        return torch.from_numpy(
+            np.ascontiguousarray(np.asarray(a).astype(dt))).to(dev)
+
+    lanes = make_lanes(qrows_dev, up(lane_off_np, np.int32),
+                       up(minv_np, np.int32), int(ik.shape[0]))
+    return lanes, init_state(ik.to(torch.int32), live, up(x0_np, np.int32),
+                             lanes.lane_e)
+
+
+def run_backward_fused(fm, qrows_dev, entry_dev, n_lanes: int, x0_np,
+                       minv_np, lane_off_np, interpret: bool = False,
+                       stats: "dict | None" = None):
+    """A whole backward pass as fused rounds, with the contract of
+    seeding_flat.run_backward_flat.
+
+    qrows_dev: (NL, L) uint8 read rows; entry_dev: (ik (E, 3) int32, info
+    (E,), lane (E,), live (E,) bool) from assemble_entries at the real entry
+    count E; x0_np/minv_np: (NL,) numpy; lane_off_np: (NL + 1,) entry
+    offsets. interpret=True runs every round through the plain version
+    ``bwd_round`` on whatever device the tensors lie on. stats, when given,
+    accumulates "bwd_rounds" and "bwd_segments" (host round trips).
+    Returns (per-lane mem lists [(x0, x1, x2, info)], overflow (NL,) bool,
+    all false: a mem lives in its entry's own slot, so no buffer fills)."""
+    L = int(qrows_dev.shape[1])
+    out_mems = [[] for _ in range(n_lanes)]
+    overflow = np.zeros(n_lanes, bool)
+    if entry_dev[0].shape[0] == 0:
+        return out_mems, overflow
+    lanes, state = entry_state(qrows_dev, entry_dev, x0_np, minv_np,
+                               lane_off_np)
+    rounds = syncs = 0
+    # every live entry dies or moves one base down the read each round
+    while rounds < L + 2:
+        for _ in range(min(ROUNDS_PER_SYNC, L + 2 - rounds)):
+            if interpret:
+                state = bwd_round(fm, lanes, state)
+            else:
+                state = bwd_round_kernel(fm, lanes, state)
+            rounds += 1
+        syncs += 1
+        if not bool(state[LIVE].any()):  # one scalar crosses to the host
+            break
+    if stats is not None:
+        stats["bwd_rounds"] = stats.get("bwd_rounds", 0) + rounds
+        stats["bwd_segments"] = stats.get("bwd_segments", 0) + syncs
+    rows = pack_emitted(state, entry_dev[1], lanes.lane_e)
+    for x0, x1, x2, start, end, ln in rows.tolist():
+        out_mems[ln].append((x0, x1, x2, (start << 32) | end))
+    return out_mems, overflow

@@ -57,10 +57,14 @@ class ExtendOut(NamedTuple):
 
 def extend_batch(qs: torch.Tensor, ts: torch.Tensor, qlens: torch.Tensor,
                  tlens: torch.Tensor, params: torch.Tensor, mat: torch.Tensor,
-                 o_del: int, e_del: int, o_ins: int, e_ins: int) -> ExtendOut:
+                 o_del: int, e_del: int, o_ins: int, e_ins: int,
+                 stats: "dict | None" = None) -> ExtendOut:
     """qs: (B, Q) uint8 query (nt4, pad 4); ts: (B, T) uint8 target;
     qlens/tlens: (B,) int32; params: (B, 4) int32 columns
-    (w, end_bonus, zdrop, h0); mat: (5, 5) int32 scoring matrix."""
+    (w, end_bonus, zdrop, h0); mat: (5, 5) int32 scoring matrix. stats,
+    when given, accumulates "cells": the DP cells inside the band of the
+    rows these problems really visit (a tensor; the work a roofline bound
+    of the kernel counts)."""
     B, Q = qs.shape
     T = ts.shape[1]
     dev = qs.device
@@ -110,6 +114,9 @@ def extend_batch(qs: torch.Tensor, ts: torch.Tensor, qlens: torch.Tensor,
         end_r = torch.minimum(torch.minimum(end, i + w + 1), qlens)
         empty = beg_r >= end_r
         act2 = act & ~empty
+        if stats is not None:
+            stats["cells"] = stats.get("cells", 0) + torch.where(
+                act2, end_r - beg_r, 0).sum(dtype=torch.int64)
 
         tb = ts[:, min(i, T - 1)].long()
         srow = mat[tb[:, None], qsl]  # (B, Q)

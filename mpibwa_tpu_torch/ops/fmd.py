@@ -1,9 +1,12 @@
 """Device-resident FM-index and batched rank/extension primitives, PyTorch.
 
-Counterpart of mpibwa_tpu/ops/fmd.py. The only FM layout on the device is
-the O2 table (ops/backward8.build_o2): one (2,) int32 row [occ_c,
+Counterpart of mpibwa_tpu/ops/fmd.py. The FM layout that is always on the
+device is the O2 table (ops/backward8.build_o2): one (2,) int32 row [occ_c,
 packed_word] per 16-base sub-block and base. Beside it live the L2
-totals, the sampled SA and the packed forward reference.
+totals, the sampled SA and the packed forward reference. The classic
+128-bp blocks (4 cumulative counts + 8 words of 16 packed bases) stay on
+the host and are uploaded as one fused (n_blocks, 12) int32 table only when
+an engine asks for them (fused_blocks(): MPIBWA_PALLAS=1, MPIBWA_BWD=pallas).
 
 Positions are int32 when the doubled genome fits (seq_len + 2 < 2**31)
 and int64 otherwise, or with ``force_wide``; counts and gather indices
@@ -13,6 +16,8 @@ real row and are masked afterwards.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -35,8 +40,17 @@ class DeviceFMIndex:
         wide = force_wide or not seq_len + 2 < 2**31
         np_idt = np.int64 if wide else np.int32
         sa = np.asarray(idx.sa).view(np.int64)
+        n_blocks = len(idx.bwt) // 16
+        blocks = np.ascontiguousarray(
+            idx.bwt[: n_blocks * 16]).reshape(n_blocks, 16)
+        occ = blocks[:, :8].copy().view(np.uint64)
+        if occ.max() > np.iinfo(np.int32).max:
+            raise ValueError("occ counts exceed int32; unsupported genome "
+                             "size")
         state = {
             "_o2": build_o2(idx.bwt),
+            "occ": occ.astype(np.int32),
+            "data": np.ascontiguousarray(blocks[:, 8:]),
             "L2": np.asarray(idx.L2).astype(np_idt),
             "sa": sa.astype(np_idt),  # -1 sentinel preserved
             "pac": np.asarray(idx.pac),
@@ -50,10 +64,11 @@ class DeviceFMIndex:
 
     @classmethod
     def from_numpy(cls, state: dict, device) -> "DeviceFMIndex":
-        """Build from numpy arrays (``_o2``, ``L2``, ``sa``, ``pac``) and
-        scalars (``primary``, ``seq_len``, ``sa_intv``, ``l_pac``, ``idt`` =
-        the position dtype), e.g. the arrays of a mpibwa_tpu DeviceFMIndex
-        pulled to the host."""
+        """Build from numpy arrays (``_o2``, ``L2``, ``sa``, ``pac``, and
+        optionally the classic block tables ``occ`` (n_blocks, 4) int32 and
+        ``data`` (n_blocks, 8) uint32) and scalars (``primary``,
+        ``seq_len``, ``sa_intv``, ``l_pac``, ``idt`` = the position dtype),
+        e.g. the arrays of a mpibwa_tpu DeviceFMIndex pulled to the host."""
         obj = cls.__new__(cls)
         obj._load(state, device)
         return obj
@@ -79,9 +94,70 @@ class DeviceFMIndex:
         self.L2 = put(state["L2"], self.np_idt)
         self.sa = put(state["sa"], self.np_idt)
         self.pac = put(state["pac"], np.uint8)
+        # host copy of L2[0..3]: the CUDA wrappers pass them by value
+        self.l2_host = [int(v) for v in np.asarray(state["L2"])[:4]]
+        occ, data = state.get("occ"), state.get("data")
+        self._host_occ = None if occ is None else np.asarray(occ, np.int32)
+        self._host_data = None if data is None else np.asarray(data,
+                                                               np.uint32)
+        self._fused = None
 
     def o2_tables(self) -> torch.Tensor:
         return self._o2
+
+    def fused_blocks(self) -> torch.Tensor:
+        """(n_blocks, 12) int32 fused rows [occ[0..3], data[0..7]] of the
+        classic 128-bp blocks: one 48-byte row serves both the cumulative
+        counts and the packed words. int32 position path only. Uploaded on
+        first use and cached (48 B per 128 bp of the doubled genome)."""
+        if self._fused is None:
+            if self.idt != torch.int32:
+                raise ValueError("fused blocks need the int32 position path")
+            if self._host_occ is None or self._host_data is None:
+                raise ValueError("this index was loaded without the classic "
+                                 "block tables (occ, data)")
+            fused = np.concatenate(
+                [self._host_occ, self._host_data.view(np.int32)], axis=1)
+            self._fused = torch.from_numpy(
+                np.ascontiguousarray(fused)).to(self.device)
+        return self._fused
+
+    # -- batched occ4 over the classic blocks --------------------------------
+
+    def occ4(self, ks: torch.Tensor) -> torch.Tensor:
+        """(...,) positions (negative = sentinel) -> (..., 4) idt: bwt_occ4
+        (bwt.c:98-105, 165-186) as a scan of the position's 128-bp block.
+        Per 16-base word the bases past the position are masked off (they
+        then read as base 0, which the base-0 count takes back), and base c
+        is counted with the __occ_aux bit trick. Bit-identical to occ4_16;
+        the plain versions of the block-layout kernels rest on it."""
+        rows = self.fused_blocks()
+        sent = ks < 0
+        k = torch.where(sent, torch.zeros_like(ks), ks)
+        k = k - (k >= self.primary).to(k.dtype)
+        blk = (k.to(torch.int64) >> 7).clamp(0, rows.shape[0] - 1)
+        within = (k & 127).to(torch.int64)
+        row = rows[blk].to(torch.int64)  # (..., 12)
+        words = row[..., 4:] & U32
+        widx = torch.arange(8, device=ks.device)
+        nvalid = (within[..., None] + 1 - widx * 16).clamp(0, 16)  # (..., 8)
+        # 64-bit lanes: the shift by 32 of nvalid == 0 gives mask 0
+        mask = ~((torch.ones_like(nvalid) << (32 - 2 * nvalid)) - 1) & U32
+        w = words & mask
+        nw = ~w & U32
+        cnts = []
+        for c in range(4):
+            a = (w if c & 2 else nw) >> 1
+            b = w if c & 1 else nw
+            m = a & b & M55
+            x = (m & M33) + ((m >> 2) & M33)
+            x = (x + (x >> 4)) & M0F
+            cnts.append(((x + (x >> 8) + (x >> 16) + (x >> 24))
+                         & 0x3F).sum(dim=-1))
+        cnt = torch.stack(cnts, dim=-1)
+        cnt[..., 0] -= (16 - nvalid).sum(dim=-1)
+        out = (row[..., :4] + cnt).to(self.idt)
+        return torch.where(sent[..., None], torch.zeros_like(out), out)
 
     # -- batched occ4 through O2 ---------------------------------------------
 
@@ -117,15 +193,34 @@ class DeviceFMIndex:
     # -- batched bidirectional extension (bwt_extend, bwt.c:262-275) ---------
 
     def extend(self, ik: torch.Tensor, is_back: int) -> torch.Tensor:
-        """ik: (..., 3) idt intervals -> (..., 4, 3) for the 4 bases."""
+        """ik: (..., 3) idt intervals -> (..., 4, 3) for the 4 bases.
+
+        MPIBWA_PALLAS=1 serves a 2-D batch of int32 intervals, at any entry
+        count, through the fused occ4 + bwt_extend kernel over the classic
+        blocks (ops/occ4_cuda.extend_kernel: the CUDA kernel on a CUDA
+        tensor, its plain version on a CPU tensor), with bit-identical
+        output. An int64 index or a batch of another rank takes the O2 path
+        below, which is mpibwa_tpu's own rule. Off by default."""
+        if (os.environ.get("MPIBWA_PALLAS", "0") == "1"
+                and self.idt == torch.int32 and ik.dim() == 2):
+            from mpibwa_tpu_torch.ops.occ4_cuda import extend_kernel
+
+            return extend_kernel(self, ik, is_back)
+        return self.extend_with(ik, is_back, self.occ4_16)
+
+    def extend_with(self, ik: torch.Tensor, is_back: int, occ4
+                    ) -> torch.Tensor:
+        """The arithmetic of bwt_extend over the ranks ``occ4`` gives at
+        k - 1 and k - 1 + x2 (occ4: (..., 2) positions -> (..., 2, 4))."""
         col = 0 if is_back else 1  # x[!is_back]
         oth = 1 - col
         kq = ik[..., col] - 1
-        both = self.occ4_16(torch.stack([kq, kq + ik[..., 2]], dim=-1))
+        both = occ4(torch.stack([kq, kq + ik[..., 2]], dim=-1))
         tk = both[..., 0, :]
         tl = both[..., 1, :]
         okx2 = tl - tk
         ok_main = self.L2[:4] + 1 + tk
+        # the interval before extension spans the sentinel
         add = ((ik[..., col] <= self.primary)
                & (ik[..., col] + ik[..., 2] - 1 >= self.primary)).to(self.idt)
         ok3 = ik[..., oth] + add

@@ -12,7 +12,7 @@ Counterpart of mpibwa_tpu/pipeline/device_align.py. Flow per microbatch:
 A backward overflow in seeding sends the microbatch to the list route:
 the exact collect_batch, Python chaining with every extension batched on
 the device (_precompute_extensions), then C finalization. Both routes
-need the C runtime (mpibwa_tpu.native.get_lib()); without it the port
+need the C runtime (mpibwa_tpu_torch.native.get_lib()); without it the port
 raises, where mpibwa_tpu takes a Python record route that is not ported
 yet (ROADMAP.md).
 """
@@ -29,24 +29,25 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from mpibwa_tpu.core import opts as O
-from mpibwa_tpu.core import region as R
-from mpibwa_tpu.core.chain import (mem_chain, mem_chain_flt,
+from mpibwa_tpu_torch.core import opts as O
+from mpibwa_tpu_torch.core import region as R
+from mpibwa_tpu_torch.core.chain import (mem_chain, mem_chain_flt,
                                    mem_flt_chained_seeds)
-from mpibwa_tpu.core.extend import ksw_extend2
-from mpibwa_tpu.core.fm import FMIndex
-from mpibwa_tpu.core.pipeline import BSeq, mem_align1_core
-from mpibwa_tpu.core.refseq import RefSeq
-from mpibwa_tpu.core.region import cal_max_gap, mem_sort_dedup_patch
-from mpibwa_tpu.pipeline.native_final import NativeChainer
+from mpibwa_tpu_torch.core.extend import ksw_extend2
+from mpibwa_tpu_torch.core.fm import FMIndex
+from mpibwa_tpu_torch.core.pipeline import BSeq, mem_align1_core
+from mpibwa_tpu_torch.core.refseq import RefSeq
+from mpibwa_tpu_torch.core.region import cal_max_gap, mem_sort_dedup_patch
+from mpibwa_tpu_torch.pipeline.native_final import NativeChainer
 from mpibwa_tpu_torch.ops.extend_batch import extend_from_coords
 from mpibwa_tpu_torch.ops.fmd import DeviceFMIndex
 from mpibwa_tpu_torch.pipeline.device_seed import DeviceSeeder, _pad_batch
 
 _NO_C_RUNTIME = ("mpibwa_tpu_torch needs the C runtime "
-                 "(mpibwa_tpu.native.get_lib() returned None: a C compiler "
-                 "is required, and MPIBWA_NATIVE / MPIBWA_FINAL must not "
-                 "disable it); the Python record route is not ported")
+                 "(mpibwa_tpu_torch.native.get_lib() returned None: a C "
+                 "compiler is required, and MPIBWA_NATIVE / MPIBWA_FINAL "
+                 "must not disable it); the Python record route is not "
+                 "ported")
 
 
 def _round_up(x: int, buckets) -> int:
@@ -132,7 +133,7 @@ class DeviceAligner:
     def _native_finalizer(self):
         """The C finalization runtime; raises when it is unavailable."""
         if self._finalizer is None:
-            from mpibwa_tpu.pipeline.native_final import NativeFinalizer
+            from mpibwa_tpu_torch.pipeline.native_final import NativeFinalizer
 
             self._finalizer = NativeFinalizer(self.refs, self.opt)
         if not self._finalizer.available:
@@ -291,7 +292,7 @@ class DeviceAligner:
         regs, reg_off = res
         fb = list(np.nonzero(fallback)[0])
         if fb:
-            from mpibwa_tpu.pipeline.native_final import regs_to_array
+            from mpibwa_tpu_torch.pipeline.native_final import regs_to_array
 
             lists = {b: mem_align1_core(self.opt, self.fm, self.refs,
                                         seqs[b].seq) for b in fb}
@@ -612,7 +613,7 @@ class DeviceAligner:
         regs, reg_off = arrays
         t0 = time.time()
         if opt.flag & O.MEM_F_PE:
-            from mpibwa_tpu.core.pair import pestat_from_isize
+            from mpibwa_tpu_torch.core.pair import pestat_from_isize
 
             if pes0 is not None:
                 pes = pes0
@@ -639,7 +640,7 @@ class DeviceAligner:
         t0 = time.time()
         opt = self.opt
         if opt.flag & O.MEM_F_PE:
-            from mpibwa_tpu.core.pair import mem_pestat
+            from mpibwa_tpu_torch.core.pair import mem_pestat
 
             pes = pes0 if pes0 is not None else mem_pestat(
                 opt, self.refs.l_pac, regs_all)

@@ -6,10 +6,13 @@ automata (ops/seeding.py) and the flat backward engine
 interval list that core.chain.collect_intv produces. Reads that overflow a
 device buffer fall back to the scalar host engine.
 
-Only the exact "flat" backward engine is ported: MPIBWA_BWD=auto or flat
-select it on every device, and v8, contig and pallas raise
-NotImplementedError (ROADMAP.md, queue 1). So the v8-only sync-free pass-2
-route is not here either; pass 2 takes the synchronous route.
+Backward engines: MPIBWA_BWD=auto or flat select the exact "flat" engine
+on every device; pallas runs the pass as fused rounds (ops/bwd_cuda.py: the
+CUDA round kernel on a CUDA device, its plain round on the CPU) and
+pallas_interp runs the same loop over the plain round on any device.
+v8 and contig raise NotImplementedError (ROADMAP.md, queue 1), so the
+v8-only sync-free pass-2 route is not here either; pass 2 takes the
+synchronous route.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from mpibwa_tpu.core.sortutil import ks_introsort
+from mpibwa_tpu_torch.core.sortutil import ks_introsort
 from mpibwa_tpu_torch.ops import seeding
 from mpibwa_tpu_torch.ops import seeding_flat as SF
 from mpibwa_tpu_torch.ops.pulls import pull_prefix, pull_prefix_async
@@ -45,11 +48,13 @@ def _backward_engine() -> str:
     mode = os.environ.get("MPIBWA_BWD", "auto")
     if mode in ("auto", "flat"):
         return "flat"
-    if mode in ("v8", "contig", "pallas", "pallas_interp"):
+    if mode in ("pallas", "pallas_interp"):
+        return mode
+    if mode in ("v8", "contig"):
         raise NotImplementedError(
-            f"MPIBWA_BWD={mode}: only the flat backward engine is ported to "
-            "torch; see ROADMAP.md queue 1 (v8 backward, contig engine, "
-            "pallas_bwd kernel)")
+            f"MPIBWA_BWD={mode}: the flat engine and the fused rounds "
+            "(pallas) are ported to torch; see ROADMAP.md queue 1 (v8 "
+            "backward, contig engine)")
     raise ValueError(f"unknown MPIBWA_BWD={mode!r}")
 
 
@@ -174,8 +179,11 @@ class DeviceSeeder:
         N = len(call_list)
         if N == 0:
             return []
-        _backward_engine()
+        engine = _backward_engine()
         arr = np.asarray(call_list, dtype=np.int64)  # (n, 5)
+        if engine != "flat":
+            return self._run_backward_fused(qd, arr, ivals_dev, infos_dev,
+                                            engine == "pallas_interp")
         NLp = SF._pad_cap(N)
         lane_row = np.zeros(NLp, np.int32)
         lane_tbl = np.zeros((NLp, 3), np.int32)
@@ -203,6 +211,29 @@ class DeviceSeeder:
             row = call_list[ln][0]
             fallback[fb_map[row] if fb_map is not None else row] = True
         return mems[:N]
+
+    def _run_backward_fused(self, qd, arr, ivals_dev, infos_dev,
+                            interpret: bool):
+        """The backward pass of every lane of arr ((N, 5) call rows) as
+        fused rounds over one flat state at its real length: no padding of
+        lanes or entries, and no overflow (a mem lives in its own entry)."""
+        from mpibwa_tpu_torch.ops import bwd_cuda
+
+        N = arr.shape[0]
+        lane_off = np.zeros(N + 1, np.int64)
+        np.cumsum(arr[:, 2], out=lane_off[1:])
+        e = int(lane_off[-1])
+        if e >= 2**31:
+            raise ValueError("backward pass of 2**31 or more entries")
+        lane_tbl = np.stack([arr[:, 1], arr[:, 2], lane_off[:-1]],
+                            axis=1).astype(np.int32)
+        lrow_d = self._upload(arr[:, 0].astype(np.int32))
+        entries = SF.assemble_entries(ivals_dev, infos_dev, lrow_d,
+                                      self._upload(lane_tbl), e)
+        mems, _ = bwd_cuda.run_backward_fused(
+            self.dfm, qd[lrow_d.long()], entries, N, arr[:, 3], arr[:, 4],
+            lane_off, interpret=interpret, stats=self.times)
+        return mems
 
     def _forward1(self, qd, lensd, B):
         """Pass-1 forward (+ pass 3 when max_mem_intv > 0). Returns (ivals,

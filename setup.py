@@ -15,9 +15,11 @@ setup(
     packages=find_packages(include=["mpibwa_tpu", "mpibwa_tpu.*",
                                     "mpibwa_tpu_torch", "mpibwa_tpu_torch.*"]),
     # the port's CUDA sources build with nvcc on first use
-    # (mpibwa_tpu_torch/ops/_build.py)
+    # (mpibwa_tpu_torch/ops/_build.py), its C runtime with the system
+    # compiler (mpibwa_tpu_torch/native/__init__.py)
     package_data={"mpibwa_tpu.native": ["*.c"],
-                  "mpibwa_tpu_torch": ["csrc/*.cu"]},
+                  "mpibwa_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+                  "mpibwa_tpu_torch.native": ["*.c", "*.h"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
     entry_points={

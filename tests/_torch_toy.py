@@ -94,7 +94,7 @@ def write_fastq(path: str, reads) -> None:
 def build_toy(directory: str, n_pairs: int = 1000) -> "dict[str, str]":
     """Write toy.fa (+ its bwa index), r1.fq and r2.fq under directory;
     returns their paths. Idempotent per directory."""
-    from mpibwa_tpu.index.build import build_index
+    from mpibwa_tpu_torch.index.build import build_index
 
     paths = {k: os.path.join(directory, f)
              for k, f in (("ref", "toy.fa"), ("r1", "r1.fq"),
@@ -111,6 +111,6 @@ def build_toy(directory: str, n_pairs: int = 1000) -> "dict[str, str]":
 
 
 def load_reads(path: str, limit: "int | None" = None):
-    from mpibwa_tpu.io.fastq import read_fastq
+    from mpibwa_tpu_torch.io.fastq import read_fastq
 
     return read_fastq(path, limit=limit)
