@@ -4,12 +4,17 @@
 Phases, one printed line (or more) each:
   1. the card's name and power limit (nvidia-smi);
   2. the three CUDA kernels (mpibwa_tpu_torch/csrc/extend.cu,
-     occ4_extend.cu, bwd_round.cu) built from the checkout, one nvcc each,
-     all started together; then the extension kernel held against its
-     plain PyTorch version on random problems at every window bucket
-     (exact equality), and later (2b) on the problems captured from phase
-     4, where both are timed with CUDA events (median of 7 runs after a
-     warm-up) and the DP cells the problems visit are counted;
+     occ4_extend.cu, bwd_round.cu) and the first versions of kernels 1 and
+     3 (csrc/extend_v1.cu, occ4_extend_v1.cu: the same-call yardstick, no
+     program path launches them) built from the checkout, one nvcc each,
+     all started together; then kernel 1 and its first version held
+     against the plain PyTorch version (exact equality) on random problems
+     at every window bucket and on the edge cases of
+     tests/_torch_toy.extend_edge_cases, timed in turns (first version,
+     kernel, kernel, first version; medians of 5 CUDA-event timings after
+     a warm-up each); later (2b) the same on the two largest calls captured
+     from phase 4, where the plain version is timed too and the DP cells
+     the problems visit are counted;
   3. a synthetic genome the length of GRCh38 chr1 (248,956,422 bp) with
      N holes and planted repeats, indexed with index/build.py and cached
      under build/genome/ by seed and size;
@@ -25,23 +30,33 @@ Phases, one printed line (or more) each:
      through the fused occ4 kernel): SAM byte-identical to phase 4's;
   9. phase 4's run with MPIBWA_BWD=pallas (the backward passes as fused
      rounds in the round kernel): SAM byte-identical to phase 4's;
-  2c. the occ4 kernel against its plain version (exact equality) on seeded
-     intervals over the index, both directions, E in {1,000, 65,536,
-     1,048,576}, and on the largest batch captured from phase 8; kernel,
-     plain version and the O2 `extend` timed (medians of 5, CUDA events);
+  2c. the occ4 kernel and its first version against the plain version
+     (exact equality) on seeded intervals over the index, both directions,
+     E in {1,000, 65,536, 1,048,576}, on the largest batch captured from
+     phase 8 and on tests/_torch_toy.occ4_edge_intervals; both timed in
+     turns, the plain version and the O2 `extend` beside them (medians of
+     5, CUDA events), and the host time of one launch of each at E=1,000;
+  10. the runs of phases 4, 8 and 9 once more on the first
+     --traced-pairs pairs (5,000) under torch.profiler (CUDA activity
+     only): each kernel's own device time summed over the run ("run_ms",
+     over "run_pairs" pairs) and the card's busy share of the align time
+     (at 50,000 pairs the three traced runs take about 700 s on an H100,
+     most of it the profiler's processing of the trace);
   2d. the round kernel against its plain round, round by round over the
      entry state captured from phase 9's first backward call (all seven
      state arrays equal after every round, and the emitted mems); a whole
      pass of each timed (medians of 5), given per launch.
+Phases 4, 8 and 9 print each kernel's launches by batch size.
 Every launch count is set to 0 just before a run of the main path and read
-just after. Each kernel's bound is the larger of its bytes over 3.35 TB/s
-and its integer operations over 33.5 TOP/s (int32 runs on half the lanes
-of the card's 67 TFLOP/s float32 rate). Then a JSON line of kernel results,
-and last
+just after. Each kernel's bound is the larger of the bytes its inputs need
+(each byte once, a block row once however many entries read it) over
+3.35 TB/s and its integer operations over 33.5 TOP/s (int32 runs on
+half the lanes of the card's 67 TFLOP/s float32 rate). Then a JSON line of
+kernel results, and last
 {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Usage: python3 chip_smoke.py [--pairs N] [--host-pairs N] [--genome-bp N]
-                             [--seed S]
+                             [--seed S] [--traced-pairs N]
 Exits non-zero without a usable CUDA device, on any mismatch and on any
 error.
 """
@@ -49,6 +64,7 @@ error.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -71,6 +87,11 @@ KERNELS = {
                   "source": "mpibwa_tpu_torch/csrc/bwd_round.cu",
                   "replaces": "mpibwa_tpu/ops/pallas_bwd.py:242"},
 }
+# each kernel's name in a profiler trace (csrc/*.cu)
+SYMBOLS = {"extend": "extend_kernel<", "occ4_extend": "occ4_extend_kernel",
+           "bwd_round": "bwd_round_kernel"}
+# the first versions of kernels 1 and 3, launched only here
+V1 = {"extend": "extend_v1", "occ4_extend": "occ4_extend_v1"}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_OPS_PER_S = 33.5e12  # half the lanes of its 67 TFLOP/s float32 rate
 # integer operations of one bwt_extend in the block kernels: two occ4 of
@@ -113,15 +134,91 @@ def random_problems(rng, B, Q, T, dev):
     return [torch.from_numpy(a).to(dev) for a in (q, t, ql, tl, par)]
 
 
-def kernel_vs_plain(args, mat) -> int:
-    """Max abs difference over the six outputs (0 = exact)."""
+v1_launches = {"extend": 0, "occ4_extend": 0}
+
+
+def _v1_fn(kernel: str, symbol: str, argtypes):
+    """The C entry point of a first version, bound once, by attribute on
+    the library as the first wrappers bound theirs."""
+    from mpibwa_tpu_torch.ops import _build
+
+    fn = getattr(_build.load(V1[kernel]), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def extend_v1(qs, ts, qlens, tlens, params, mat, o_del, e_del, o_ins,
+              e_ins):
+    """csrc/extend_v1.cu through the launch path it had: windows transposed
+    to (Q, B) and (T, B) and the (2, Q+1, B) eh scratch allocated in the
+    call. Same signature and outputs as extend_batch_kernel."""
+    from mpibwa_tpu_torch.ops.extend_batch import ExtendOut
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _v1_fn("extend", "mpibwa_extend_batch_v1",
+                [P] * 6 + [I] * 7 + [P] * 4)
+    B, Q = qs.shape
+    T = ts.shape[1]
+    dev = qs.device
+    out = torch.empty((6, B), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        qT = qs.t().contiguous()
+        tT = ts.t().contiguous()
+        eh = torch.empty((2, Q + 1, B), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(qT.data_ptr(), tT.data_ptr(), qlens.data_ptr(),
+                tlens.data_ptr(), params.data_ptr(), mat.data_ptr(), B, Q, T,
+                o_del, e_del, o_ins, e_ins, eh[0].data_ptr(),
+                eh[1].data_ptr(), out.data_ptr(), stream)
+    if rc != 0:
+        raise Failed(f"extend_v1 launch failed (cudaError {rc})")
+    v1_launches["extend"] += 1
+    return ExtendOut(*out.unbind(0))
+
+
+def occ4_v1(fm, ik, is_back):
+    """csrc/occ4_extend_v1.cu through the launch path it had (the fused
+    table looked up, the device entered and the stream asked for on every
+    call). Same signature and output as occ4_cuda.extend_kernel."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    blocks = fm.fused_blocks()
+    if blocks.device != ik.device:
+        raise Failed(f"ik is on {ik.device}, the index on {blocks.device}")
+    if not ik.is_contiguous():
+        raise Failed("ik must be contiguous")
+    E = ik.shape[0]
+    out = torch.empty((E, 4, 3), dtype=torch.int32, device=ik.device)
+    fn = _v1_fn("occ4_extend", "mpibwa_occ4_extend_v1",
+                [P] + [I] * 6 + [P, I, I, P, P])
+    with torch.cuda.device(ik.device):
+        stream = torch.cuda.current_stream(ik.device).cuda_stream
+        rc = fn(blocks.data_ptr(), blocks.shape[0], *fm.l2_host, fm.primary,
+                ik.data_ptr(), E, 1 if is_back else 0, out.data_ptr(), stream)
+    if rc != 0:
+        raise Failed(f"occ4_v1 launch failed (cudaError {rc})")
+    v1_launches["occ4_extend"] += 1
+    return out
+
+
+def max_err(got, want) -> int:
+    if isinstance(got, tuple):
+        got, want = torch.stack(list(got)), torch.stack(list(want))
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+def extend_errs(args, pen) -> "tuple[int, int]":
+    """(kernel, first version) max abs difference from the plain version
+    over the six outputs (0 = exact)."""
     from mpibwa_tpu_torch.ops.extend_batch import extend_batch
     from mpibwa_tpu_torch.ops.extend_cuda import extend_batch_kernel
 
-    got = torch.stack(list(extend_batch_kernel(*args, mat, *PEN)))
+    got = extend_batch_kernel(*args, *pen)
+    old = extend_v1(*args, *pen)
     torch.cuda.synchronize()
-    want = torch.stack(list(extend_batch(*args, mat, *PEN)))
-    return int((got.long() - want.long()).abs().max())
+    want = extend_batch(*args, *pen)
+    return max_err(got, want), max_err(old, want)
 
 
 def median_ms(fn, reps: int) -> float:
@@ -138,13 +235,34 @@ def median_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def time_both(args, mat, reps: int) -> "tuple[float, float]":
-    """(kernel ms, plain ms): medians of reps CUDA-event timings each."""
-    from mpibwa_tpu_torch.ops.extend_batch import extend_batch
+def in_turns(old, new, reps: int) -> "tuple[float, float, list]":
+    """(old ms, new ms, the four medians) timed old, new, new, old; each
+    version's time is the mean of its two medians."""
+    t = [median_ms(f, reps) for f in (old, new, new, old)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds of one call, over n calls without a sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def fmt_turns(t) -> str:
+    return " / ".join(f"{v:.4f}" for v in t)
+
+
+def extend_turns(args, pen, reps: int) -> "tuple[float, float, list]":
     from mpibwa_tpu_torch.ops.extend_cuda import extend_batch_kernel
 
-    return (median_ms(lambda: extend_batch_kernel(*args, mat, *PEN), reps),
-            median_ms(lambda: extend_batch(*args, mat, *PEN), reps))
+    return in_turns(lambda: extend_v1(*args, *pen),
+                    lambda: extend_batch_kernel(*args, *pen), reps)
 
 
 def bound(nbytes: float, ops: float) -> "tuple[float, str]":
@@ -154,33 +272,35 @@ def bound(nbytes: float, ops: float) -> "tuple[float, str]":
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def extend_bound(args, mat) -> "tuple[float, str, int]":
+def extend_bound(args) -> "tuple[float, str, int]":
     """Bound of one extension call: the DP cells these problems visit
     (counted in the plain version) as integer operations, against the bytes
-    of the windows, lengths, params and outputs, each once, plus the eh
-    scratch rows written once and read once."""
+    of the windows, lengths, params, matrix and outputs, each once."""
     from mpibwa_tpu_torch.ops.extend_batch import extend_batch
 
     stats = {}
-    extend_batch(*args, mat, *PEN, stats=stats)
+    extend_batch(*args, *PEN, stats=stats)
     cells = int(stats["cells"])
-    qs, ts, qlens, tlens, params = args
-    B, Q = qs.shape
-    eh = 2 * (Q + 1) * B * 4
+    qs, ts, qlens, tlens, params, _ = args
+    B = qs.shape[0]
     nbytes = (qs.numel() + ts.numel() + 4 * (qlens.numel() + tlens.numel()
                                              + params.numel() + 25)
-              + 6 * B * 4 + 2 * eh)
+              + 6 * B * 4)
     return bound(nbytes, cells * OPS_PER_DP_CELL) + (cells,)
 
 
-def phase2_random(rng, dev, mat) -> int:
+def phase2_random(rng, dev, mat, toy) -> int:
+    """Kernel 1 and its first version against the plain version on random
+    problems at every bucket and on the edge cases; returns the worst
+    difference."""
     from mpibwa_tpu_torch.ops import _build
 
     t0 = time.time()
-    _build.load_all(list(KERNELS))
-    log(f"phase 2 build: nvcc sm_90a, {len(KERNELS)} sources side by side, "
+    names = list(KERNELS) + list(V1.values())
+    _build.load_all(names)
+    log(f"phase 2 build: nvcc sm_90a, {len(names)} sources side by side, "
         f"{time.time() - t0:.2f}s")
-    for name in KERNELS:
+    for name in names:
         regs = [ln.strip()
                 for ln in _build.build_logs.get(name, "").splitlines()
                 if "registers" in ln or "spill" in ln]
@@ -188,15 +308,27 @@ def phase2_random(rng, dev, mat) -> int:
             + ("; ".join(regs) or "library already built under build/kernels"))
     worst = 0
     for (Q, T), B in [(b, 4096) for b in BUCKETS] + [((128, 256), 65536)]:
-        args = random_problems(rng, B, Q, T, dev)
-        err = kernel_vs_plain(args, mat)
-        ms, plain_ms = time_both(args, mat, 5)
-        log(f"phase 2 random problems Q={Q} T={T} B={B}: max_abs_err={err}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 5 "
-            f"after a warm-up, CUDA events)")
-        worst = max(worst, err)
+        args = random_problems(rng, B, Q, T, dev) + [mat]
+        err, err1 = extend_errs(args, PEN)
+        old, new, t = extend_turns(args, PEN, 5)
+        log(f"phase 2 random problems Q={Q} T={T} B={B}: max_abs_err="
+            f"{err} (first version {err1}); kernel {new:.4f} ms, first "
+            f"version {old:.4f} ms (turns v1/new/new/v1 {fmt_turns(t)}, "
+            f"medians of 5 after a warm-up, CUDA events)")
+        worst = max(worst, err, err1)
+    for c in toy.extend_edge_cases(int(rng.integers(1 << 30))):
+        args = [torch.from_numpy(c[k]).to(dev) for k in
+                ("q", "t", "qlens", "tlens", "params", "mat")]
+        err, err1 = extend_errs(args, c["pen"])
+        old, new, _ = extend_turns(args, c["pen"], 3)
+        B, Q = c["q"].shape
+        log(f"phase 2 edge case {c['name']} (B={B}, Q={Q}, "
+            f"T={c['t'].shape[1]}): max_abs_err={err} (first version "
+            f"{err1}); kernel {new:.4f} ms, first version {old:.4f} ms")
+        worst = max(worst, err, err1)
     if worst:
-        raise Failed("kernel disagrees with its plain version")
+        raise Failed("kernel 1 or its first version disagrees with the "
+                     "plain version")
     return worst
 
 
@@ -254,9 +386,10 @@ def build_genome(seed: int, n: int) -> "tuple[str, str]":
 
 class Spy:
     """Records the Runtime the CLI builds, a few extension kernel calls (the
-    largest B) for phase 2b, the largest occ4 batch for phase 2c and the
-    first fused backward call for phase 2d. The launch counts stay on the
-    wrappers themselves."""
+    largest B) for phase 2b, the largest occ4 batch for phase 2c, the first
+    fused backward call for phase 2d and the batch size of every wrapper
+    call that launches a kernel. The launch counts stay on the wrappers
+    themselves."""
 
     def __init__(self):
         from mpibwa_tpu_torch.ops import bwd_cuda, extend_cuda, occ4_cuda
@@ -266,11 +399,13 @@ class Spy:
         self.captured = []
         self.occ4_ik = None
         self.bwd_call = None
+        self.sizes = {name: [] for name in KERNELS}
         self._lock = threading.Lock()
         self._mods = (extend_cuda, occ4_cuda, bwd_cuda)
         self._real = extend_cuda.extend_batch_kernel
         self._real_occ4 = occ4_cuda.extend_kernel
         self._real_bwd = bwd_cuda.run_backward_fused
+        self._real_round = bwd_cuda.bwd_round_kernel
         self.wrappers = {"extend": extend_cuda.extend_batch_kernel,
                          "occ4_extend": occ4_cuda.extend_kernel,
                          "bwd_round": bwd_cuda.bwd_round_kernel}
@@ -281,8 +416,18 @@ class Spy:
             spy._rt_init(rt, *a, **k)
             spy.runtimes.append(rt)
 
+        def sized(name, real, size, *a):
+            """real(*a), its batch size kept if it launched."""
+            n0 = spy.wrappers[name].launches
+            out = real(*a)
+            if spy.wrappers[name].launches != n0:
+                with spy._lock:
+                    spy.sizes[name].append(size)
+            return out
+
         def capture(qs, ts, qlens, tlens, params, mat, *pen):
-            out = spy._real(qs, ts, qlens, tlens, params, mat, *pen)
+            out = sized("extend", spy._real, qs.shape[0], qs, ts, qlens,
+                        tlens, params, mat, *pen)
             with spy._lock:
                 spy.captured.append(
                     [x.clone() for x in (qs, ts, qlens, tlens, params)]
@@ -292,11 +437,13 @@ class Spy:
             return out
 
         def capture_occ4(fm, ik, is_back):
+            out = sized("occ4_extend", spy._real_occ4, ik.shape[0], fm, ik,
+                        is_back)
             with spy._lock:
                 if is_back and (spy.occ4_ik is None
                                 or ik.shape[0] > spy.occ4_ik.shape[0]):
                     spy.occ4_ik = ik.clone()
-            return spy._real_occ4(fm, ik, is_back)
+            return out
 
         def capture_bwd(fm, qrows, entry, n_lanes, x0, minv, lane_off, **k):
             with spy._lock:
@@ -308,14 +455,32 @@ class Spy:
             return spy._real_bwd(fm, qrows, entry, n_lanes, x0, minv,
                                  lane_off, **k)
 
+        def size_round(fm, lanes, state):
+            return sized("bwd_round", spy._real_round, state.shape[1], fm,
+                         lanes, state)
+
         Runtime.__init__ = rt_init
         extend_cuda.extend_batch_kernel = capture
         occ4_cuda.extend_kernel = capture_occ4
         bwd_cuda.run_backward_fused = capture_bwd
+        bwd_cuda.bwd_round_kernel = size_round
 
     @property
     def launches(self) -> dict:
         return {name: fn.launches for name, fn in self.wrappers.items()}
+
+    def size_hist(self) -> dict:
+        """Per kernel, its launches by batch size in power-of-two buckets
+        ("2^k" counts sizes in [2^(k-1), 2^k))."""
+        out = {}
+        for name, sizes in self.sizes.items():
+            hist = {}
+            for n in sizes:
+                key = f"2^{int(n).bit_length()}"
+                hist[key] = hist.get(key, 0) + 1
+            out[name] = dict(sorted(hist.items(),
+                                    key=lambda kv: int(kv[0][2:])))
+        return out
 
     def close(self):
         from mpibwa_tpu_torch.parallel.runtime import Runtime
@@ -325,10 +490,13 @@ class Spy:
         extend_cuda.extend_batch_kernel = self._real
         occ4_cuda.extend_kernel = self._real_occ4
         bwd_cuda.run_backward_fused = self._real_bwd
+        bwd_cuda.bwd_round_kernel = self._real_round
 
     def reset(self):
         for fn in self.wrappers.values():
             fn.launches = 0
+        for sizes in self.sizes.values():
+            sizes.clear()
         self.runtimes.clear()
 
 
@@ -366,7 +534,8 @@ def run_cli(workdir: str, argv: "list[str]", spy: Spy, ext: str,
     return {"sam": sam, "wall": wall, "align": rt.times["align"],
             "launches": spy.launches, "stats": al.stats,
             "seed_times": al.seeder.times,
-            "peak": torch.cuda.max_memory_allocated()}
+            "peak": torch.cuda.max_memory_allocated(),
+            "sizes": spy.size_hist()}
 
 
 def check_sam(sam: bytes, n_reads: int) -> float:
@@ -451,9 +620,29 @@ def seeded_intervals(rng, fm, n: int) -> torch.Tensor:
     return torch.from_numpy(ik).to(fm.device)
 
 
-def phase2c(rng, fm, main_ik) -> dict:
-    """occ4 kernel == extend_blocks == the O2 extend; times at every E and
-    at the main path's largest batch. Returns the kernels-line numbers."""
+def distinct_rows(fm, k: torch.Tensor, s: torch.Tensor) -> int:
+    """Block rows that bwt_extend needs for intervals of rank side k and
+    size s, each counted once over the whole batch however many ends fall
+    in it: the 128-bp blocks of the ends k-1 and k-1+s, none for a
+    sentinel end (position < 0)."""
+    n_blocks = fm.fused_blocks().shape[0]
+    p = torch.cat([k.long() - 1, k.long() - 1 + s.long()])
+    p = p[p >= 0]
+    blk = ((p - (p >= fm.primary).long()) >> 7).clamp(0, n_blocks - 1)
+    return int(torch.unique(blk).numel())
+
+
+def occ4_bytes(fm, ik: torch.Tensor) -> "tuple[float, int]":
+    """(bytes, block rows) a backward extension of ik needs: 12 B in and
+    48 B out an entry, 48 B for each distinct block row of the batch."""
+    rows = distinct_rows(fm, ik[:, 0], ik[:, 2])
+    return 60.0 * ik.shape[0] + 48.0 * rows, rows
+
+
+def phase2c(rng, fm, main_ik, toy) -> dict:
+    """occ4 kernel == its first version == extend_blocks (== the O2 extend
+    on seeded intervals); both versions timed in turns at every E and at
+    the main path's largest batch. Returns the kernels-line numbers."""
     from mpibwa_tpu_torch.ops.occ4_cuda import extend_blocks, extend_kernel
 
     worst = 0
@@ -461,31 +650,76 @@ def phase2c(rng, fm, main_ik) -> dict:
     cases = [("seeded", seeded_intervals(rng, fm, E))
              for E in (1_000, 65_536, 1_048_576)]
     cases.append(("captured from phase 8 (main path)", main_ik))
+    cases += [(f"edge case {name}", torch.from_numpy(ik).to(fm.device))
+              for name, ik in toy.occ4_edge_intervals(
+                  fm, int(rng.integers(1 << 30))).items()]
     for tag, ik in cases:
         E = ik.shape[0]
         err = 0
         for is_back in (1, 0):
             got = extend_kernel(fm, ik, is_back)
+            old = occ4_v1(fm, ik, is_back)
             torch.cuda.synchronize()
             want = extend_blocks(fm, ik, is_back)
-            err = max(err, int((got.long() - want.long()).abs().max()))
+            err = max(err, max_err(got, want), max_err(old, want))
             if tag == "seeded":  # valid intervals: the O2 path agrees too
-                o2 = fm.extend(ik, is_back)
-                err = max(err, int((got.long() - o2.long()).abs().max()))
-        ms = median_ms(lambda: extend_kernel(fm, ik, 1), 5)
+                err = max(err, max_err(got, fm.extend(ik, is_back)))
+        worst = max(worst, err)
+        if tag.startswith("edge"):
+            log(f"phase 2c occ4 kernel, {tag}, E={E}: max_abs_err={err} "
+                f"(kernel and first version, both directions)")
+            continue
+        old_ms, ms, t = in_turns(lambda: occ4_v1(fm, ik, 1),
+                                 lambda: extend_kernel(fm, ik, 1), 5)
         plain_ms = median_ms(lambda: extend_blocks(fm, ik, 1), 5)
         o2_ms = median_ms(lambda: fm.extend(ik, 1), 5)
-        b_ms, b_by = bound(156 * E, OPS_PER_EXTENSION * E)
-        log(f"phase 2c occ4 kernel, {tag}, E={E}: max_abs_err={err} (both "
-            f"directions); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, O2 "
-            f"extend {o2_ms:.4f} ms (medians of 5 after a warm-up, CUDA "
-            f"events); bound {b_ms:.5f} ms by {b_by}")
-        worst = max(worst, err)
-        res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-               "bound_by": b_by}
+        nbytes, rows = occ4_bytes(fm, ik)
+        b_ms, b_by = bound(nbytes, OPS_PER_EXTENSION * E)
+        log(f"phase 2c occ4 kernel, {tag}, E={E}: max_abs_err={err} (kernel "
+            f"and first version, both directions); kernel {ms:.4f} ms, first "
+            f"version {old_ms:.4f} ms (turns v1/new/new/v1 {fmt_turns(t)}), "
+            f"plain {plain_ms:.4f} ms, O2 extend {o2_ms:.4f} ms (medians of "
+            f"5 after a warm-up, CUDA events); bound {b_ms:.5f} ms by {b_by} "
+            f"({rows} distinct block rows, {rows / E:.3f} an entry; "
+            f"{nbytes / E:.1f} B an entry)")
+        if E == 1_000:
+            h = [host_us(f) for f in (lambda: occ4_v1(fm, ik, 1),
+                                      lambda: extend_kernel(fm, ik, 1),
+                                      lambda: extend_kernel(fm, ik, 1),
+                                      lambda: occ4_v1(fm, ik, 1))]
+            log(f"phase 2c occ4 host time of one launch at E={E}: kernel "
+                f"{(h[1] + h[2]) / 2:.2f} us, first version "
+                f"{(h[0] + h[3]) / 2:.2f} us (turns v1/new/new/v1 "
+                f"{' / '.join(f'{v:.2f}' for v in h)}; 200 launches "
+                f"without a sync, host clock); of it: "
+                + host_parts(fm, ik))
+        res = {"ms": ms, "ms_v1": old_ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by}
     if worst:
-        raise Failed("occ4 kernel disagrees with its plain version")
+        raise Failed("occ4 kernel or its first version disagrees with its "
+                     "plain version")
     return dict(res, max_abs_err=worst)
+
+
+def host_parts(fm, ik) -> str:
+    """Host microseconds of the pieces of one occ4 wrapper call."""
+    from mpibwa_tpu_torch.ops import _build, occ4_cuda
+
+    E = ik.shape[0]
+    _, fargs = fm.fused_args()
+    out = torch.empty((E, 4, 3), dtype=torch.int32, device=ik.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = _build.entry(*occ4_cuda.ENTRY)
+    parts = {
+        "torch.empty": lambda: torch.empty((E, 4, 3), dtype=torch.int32,
+                                           device=ik.device),
+        "torch.cuda.current_device + current_stream": lambda: (
+            torch.cuda.current_device(),
+            torch.cuda.current_stream(ik.device).cuda_stream),
+        "C entry point (ctypes + launch)": lambda: fn(
+            *fargs, ik.data_ptr(), E, 1, out.data_ptr(), stream),
+    }
+    return "; ".join(f"{k} {host_us(f):.2f} us" for k, f in parts.items())
 
 
 def phase2d(fm, call) -> dict:
@@ -495,15 +729,23 @@ def phase2d(fm, call) -> dict:
 
     qrows, entry, x0, minv, lane_off = call
     lanes, state0 = BC.entry_state(qrows, entry, x0, minv, lane_off)
-    E, NL = state0.shape[1], qrows.shape[0]
+    E, NL, L = state0.shape[1], qrows.shape[0], qrows.shape[1]
     kst, pst = state0.clone(), state0.clone()
-    worst = rounds = live_rounds = 0
+    worst = rounds = live_rounds = live_lanes = rows = 0
     while bool(pst[BC.LIVE].any()):
-        live_rounds += int(pst[BC.LIVE].sum())
+        live = pst[BC.LIVE] != 0
+        live_rounds += int(live.sum())
+        live_lanes += int(torch.unique(lanes.lane_e[live]).numel())
+        # the entries that extend read their block rows, each distinct row
+        # of the round counted once
+        i = pst[BC.I].long()
+        qi = lanes.qrows[lanes.lane_e, i.clamp(0, L - 1)]
+        ext = live & (i >= 0) & (i < L) & (qi < 4)
+        rows += distinct_rows(fm, pst[BC.IK0][ext], pst[BC.IK2][ext])
         pst = BC.bwd_round(fm, lanes, pst)
         BC.bwd_round_kernel(fm, lanes, kst)
         torch.cuda.synchronize()
-        worst = max(worst, int((kst.long() - pst.long()).abs().max()))
+        worst = max(worst, max_err(kst, pst))
         rounds += 1
         if rounds > qrows.shape[1] + 2:
             raise Failed("backward pass did not end")
@@ -522,23 +764,59 @@ def phase2d(fm, call) -> dict:
     pass_ms = median_ms(lambda: whole_pass(BC.bwd_round_kernel, copies), reps)
     copies = [state0.clone() for _ in range(reps + 1)]
     plain_pass_ms = median_ms(lambda: whole_pass(BC.bwd_round, copies), reps)
-    # a live entry: 7 state words in and out, its query base, min_intv and
-    # two 48-byte block rows
-    b_ms, b_by = bound(164 * live_rounds / rounds,
-                       OPS_PER_EXTENSION * live_rounds / rounds)
+    # a live entry: 7 state words in and out (56 B); a lane with live
+    # entries: its query base, min_intv and two lane offsets (13 B); each
+    # distinct block row of a round: 48 B
+    nbytes = (56 * live_rounds + 13 * live_lanes + 48 * rows) / rounds
+    b_ms, b_by = bound(nbytes, OPS_PER_EXTENSION * live_rounds / rounds)
     log(f"phase 2d round kernel, entry state of phase 9's first backward "
         f"call: E={E} entries, {NL} lanes, {rounds} rounds, {live_rounds} "
-        f"live entry-rounds, {len(mems_k)} mems: max_abs_err={worst} over "
-        f"all 7 state arrays after every round, mems equal; whole pass "
-        f"kernel {pass_ms:.4f} ms, plain {plain_pass_ms:.4f} ms (medians of "
-        f"{reps} after a warm-up, CUDA events) = {pass_ms / rounds:.4f} / "
-        f"{plain_pass_ms / rounds:.4f} ms a launch; bound {b_ms:.5f} ms a "
-        f"launch by {b_by}")
+        f"live entry-rounds in {live_lanes} live lane-rounds reading {rows} "
+        f"distinct block rows (summed over rounds), {len(mems_k)} mems: "
+        f"max_abs_err={worst} over all 7 state arrays after every round, "
+        f"mems equal; whole pass kernel {pass_ms:.4f} ms, plain "
+        f"{plain_pass_ms:.4f} ms (medians of {reps} after a warm-up, CUDA "
+        f"events) = {pass_ms / rounds:.4f} / {plain_pass_ms / rounds:.4f} ms "
+        f"a launch; bound {b_ms:.5f} ms a launch by {b_by}")
     if worst:
         raise Failed("round kernel disagrees with its plain round")
     return {"max_abs_err": worst, "ms": pass_ms / rounds,
             "plain_ms": plain_pass_ms / rounds, "bound_ms": b_ms,
             "bound_by": b_by}
+
+
+def report_sizes(tag: str, r: dict, kernel: str) -> None:
+    """Print a kernel's launches over a main-path run by batch size."""
+    log(f"{tag} {kernel} over the run: {r['launches'][kernel]} launches; "
+        f"by batch size {json.dumps(r['sizes'][kernel])}")
+
+
+def profiled_run(tag, workdir, argv, spy, knobs, kernel, base_sam) -> dict:
+    """A main-path run again under torch.profiler with CUDA activity only:
+    the kernel's own device time summed over all its launches, and the
+    device time of everything the run put on the card. Its SAM must equal
+    base_sam, where given."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r = run_cli(workdir, argv, spy, "device", knobs)
+    if base_sam is not None and r["sam"] != base_sam:
+        raise Failed(f"{tag}: SAM differs from the untraced run's")
+    rows = prof.key_averages()
+    mine = [e for e in rows if SYMBOLS[kernel] in e.key]
+    dev_ms = sum(e.device_time_total for e in mine) / 1e3
+    n = sum(e.count for e in mine)
+    if n != r["launches"][kernel]:
+        raise Failed(f"{tag}: {n} {kernel} launches traced of "
+                     f"{r['launches'][kernel]}")
+    busy = sum(e.device_time_total for e in rows) / 1e6
+    log(f"{tag} {kernel} device time over the run (torch.profiler, CUDA "
+        f"activity only): {n} launches, {dev_ms:.4f} ms = "
+        f"{dev_ms / max(n, 1):.4f} ms a launch, by batch size "
+        f"{json.dumps(r['sizes'][kernel])}; everything on the card "
+        f"{busy:.3f} s in {r['align']:.2f} s of align time (busy share "
+        f"{busy / r['align']:.3f})")
+    return {"run_ms": dev_ms, "run_launches": n, "sam": r["sam"]}
 
 
 def knob_run(tag, workdir, argv, spy, knobs, kernel, base_sam, n_reads):
@@ -561,6 +839,8 @@ def main() -> int:
     ap.add_argument("--host-pairs", type=int, default=1_000)
     ap.add_argument("--genome-bp", type=int, default=248_956_422)
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--traced-pairs", type=int, default=5_000,
+                    help="pairs of the traced runs of phase 10")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -585,7 +865,8 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     mat = torch.from_numpy(fill_scmat(1, 4).reshape(5, 5).astype(np.int32)
                            ).to(dev)
-    worst = phase2_random(rng, dev, mat)
+    worst = phase2_random(rng, dev, mat, _torch_toy)
+    v1_before = dict(v1_launches)
 
     t0 = time.time()
     ref, chrom = build_genome(args.seed, args.genome_bp)
@@ -613,6 +894,7 @@ def main() -> int:
     launches = {"extend": pe["launches"]["extend"]}
     report_run("phase 4 PE device", pe, n_pe)
     log(f"phase 4 mapped share {mapped:.4f}")
+    report_sizes("phase 4", pe, "extend")
     if launches["extend"] <= 0:
         raise Failed("the main path launched no extension kernel")
     captured = list(spy.captured)
@@ -662,47 +944,81 @@ def main() -> int:
                   pe_argv, spy, {"MPIBWA_PALLAS": "1"}, "occ4_extend",
                   pe["sam"], n_pe)
     launches["occ4_extend"] = r8["launches"]["occ4_extend"]
+    report_sizes("phase 8", r8, "occ4_extend")
     r9 = knob_run("phase 9 PE MPIBWA_BWD=pallas", os.path.join(work, "pe_bwd"),
                   pe_argv, spy, {"MPIBWA_BWD": "pallas"}, "bwd_round",
                   pe["sam"], n_pe)
     launches["bwd_round"] = r9["launches"]["bwd_round"]
+    report_sizes("phase 9", r9, "bwd_round")
+    # phase 10: the runs of phases 4, 8 and 9 again on the first pairs,
+    # traced; every traced SAM equals the first one (and phase 4's when
+    # the input is the whole of it)
+    n_tr = min(args.traced_pairs, args.pairs)
+    t_argv = pe_argv
+    base_sam = pe["sam"] if n_tr == args.pairs else None
+    if n_tr < args.pairs:
+        for tag, reads in (("t1", r1l[:n_tr]), ("t2", r2l[:n_tr])):
+            paths[tag] = os.path.join(work, tag + ".fq")
+            write_reads(paths[tag], reads)
+        t_argv = base + [paths["t1"], paths["t2"]]
+    log(f"phase 10 traced runs on the first {n_tr} pairs")
+    traced = {}
+    for k, ph, d, kn in (
+            ("extend", "phase 4", "pe_device_traced", {}),
+            ("occ4_extend", "phase 8", "pe_occ4_traced",
+             {"MPIBWA_PALLAS": "1"}),
+            ("bwd_round", "phase 9", "pe_bwd_traced",
+             {"MPIBWA_BWD": "pallas"})):
+        traced[k] = profiled_run(f"phase 10 ({ph})", os.path.join(work, d),
+                                 t_argv, spy, kn, k, base_sam)
+        base_sam = traced[k].pop("sam")
+    if v1_launches != v1_before:
+        raise Failed("the main path launched a first-version kernel")
+    log(f"phases 4-9 launched no first-version kernel: {v1_launches} "
+        f"launches, all from phase 2")
     fm = spy.runtimes[-1].aligners[0].dfm  # phase 9's index, on the card
     spy.close()
     if spy.occ4_ik is None or spy.bwd_call is None:
         raise Failed("no occ4 batch or backward call captured from the main "
                      "path")
 
-    # phase 2b: the kernel on the problems of the main path
-    ms = plain_ms = None
-    for i, c in enumerate(captured):
-        args, m = c[:5], c[5]
-        err = kernel_vs_plain(args, m)
-        worst = max(worst, err)
-        B, Q, T = args[0].shape[0], args[0].shape[1], args[1].shape[1]
-        line = (f"phase 2b captured call B={B} Q={Q} T={T}: "
-                f"max_abs_err={err}")
-        if i == 0:
-            ms, plain_ms = time_both(args, m, 7)
-            b_ms, b_by, cells = extend_bound(args, m)
-            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                     f"(median of 7 after a warm-up, CUDA events); {cells} "
-                     f"DP cells visited, bound {b_ms:.5f} ms by {b_by}")
-        log(line)
-    if worst:
-        raise Failed("kernel disagrees with its plain version")
+    # phase 2b: kernel 1 and its first version on the problems of the
+    # main path
+    from mpibwa_tpu_torch.ops.extend_batch import extend_batch
+
     if not captured:
         raise Failed("no extension problems captured from the main path")
+    ext = {}
+    for i, args in enumerate(captured):
+        err, err1 = extend_errs(args, PEN)
+        worst = max(worst, err, err1)
+        old, new, t = extend_turns(args, PEN, 7)
+        B, Q, T = args[0].shape[0], args[0].shape[1], args[1].shape[1]
+        line = (f"phase 2b captured call B={B} Q={Q} T={T}: max_abs_err="
+                f"{err} (first version {err1}); kernel {new:.4f} ms, first "
+                f"version {old:.4f} ms (turns v1/new/new/v1 {fmt_turns(t)}, "
+                f"medians of 7 after a warm-up, CUDA events)")
+        if i == 0:
+            plain_ms = median_ms(lambda: extend_batch(*args, *PEN), 7)
+            b_ms, b_by, cells = extend_bound(args)
+            line += (f"; plain {plain_ms:.4f} ms; {cells} DP cells visited, "
+                     f"bound {b_ms:.5f} ms by {b_by}")
+            ext = {"ms": new, "ms_v1": old, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by}
+        log(line)
+    if worst:
+        raise Failed("kernel 1 or its first version disagrees with the "
+                     "plain version")
 
-    results = {"extend": {"max_abs_err": worst, "ms": ms,
-                          "plain_ms": plain_ms, "bound_ms": b_ms,
-                          "bound_by": b_by},
-               "occ4_extend": phase2c(rng, fm, spy.occ4_ik),
+    results = {"extend": dict(ext, max_abs_err=worst),
+               "occ4_extend": phase2c(rng, fm, spy.occ4_ik, _torch_toy),
                "bwd_round": phase2d(fm, spy.bwd_call)}
 
     log(f"total {time.time() - t_start:.1f}s")
     # no single PyTorch call computes any of the three functions
     log(json.dumps({"kernels": [
-        dict(KERNELS[k], launches=launches[k], library_ms=None, **results[k])
+        dict(KERNELS[k], launches=launches[k], library_ms=None,
+             run_pairs=n_tr, **traced[k], **results[k])
         for k in KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,9 @@
 // (count of live entries before, "a mem was emitted above", x2 of the last
 // keeper) are three scalars carried down the lane. Per live entry it
 //   - looks up the query base at the entry's position i,
-//   - backward-extends the interval (two block rows read in the kernel),
+//   - backward-extends the interval (its block rows read in the kernel:
+//     one when both ends of the interval share a 128-bp block, else two,
+//     all loads issued before any counting; csrc/occ4.cuh),
 //   - keeps it if the extended interval still has min_intv occurrences,
 //   - lets the lane's first live entry that fails emit a mem unless it is
 //     contained in the last one (flag in its own slot; its i stays where it
@@ -22,8 +24,8 @@
 // state with no live entry changes nothing.
 //
 // Bound: bytes. A live entry reads and writes its 7 state words, reads its
-// query base and two 48-byte block rows; the lane reads its offsets and
-// min_intv once. The walk down a lane is serial and neighbouring threads
+// query base and one or two 48-byte block rows; the lane reads its offsets
+// and min_intv once. The walk down a lane is serial and neighbouring threads
 // read entries a lane length apart, so the state traffic is not coalesced:
 // the design is the simple one that is exact.
 #include "occ4.cuh"

@@ -7,6 +7,13 @@
 // packed 2-bit bases, first base in the top bits]. A row is 16-byte aligned
 // (48 = 3 x 16), so a thread reads it as three 16-byte loads through the
 // read-only path.
+//
+// bwt_extend needs the counts at two positions, k-1 and k-1+s. extend4
+// finds both block rows first and issues the loads of the distinct ones
+// before any counting: one row (three loads) when both positions fall in
+// one 128-bp block, as they do for most entries once intervals are narrow,
+// two rows (six loads in flight together) otherwise, and nothing for a
+// sentinel position.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,23 +27,34 @@ struct FmConst {
   int primary;  // BWT position of the sentinel
 };
 
-// cnt[c] = number of bases c in BWT[0..pos] (bwt_occ4); pos < 0 is the
-// "before the first position" sentinel and counts nothing. Positions at or
-// past `primary` shift down by one: the sentinel is not stored.
-__device__ __forceinline__ void occ4(const FmConst& fm, int pos, int cnt[4]) {
-  if (pos < 0) {
-    cnt[0] = cnt[1] = cnt[2] = cnt[3] = 0;
-    return;
-  }
-  int p = pos - (pos >= fm.primary ? 1 : 0);
-  int blk = min(max(p >> 7, 0), fm.n_blocks - 1);
-  int within = p & 127;
-  const int4* row = reinterpret_cast<const int4*>(fm.blocks) + 3 * (size_t)blk;
-  int4 r0 = __ldg(row), r1 = __ldg(row + 1), r2 = __ldg(row + 2);
-  unsigned words[8] = {(unsigned)r1.x, (unsigned)r1.y, (unsigned)r1.z,
-                       (unsigned)r1.w, (unsigned)r2.x, (unsigned)r2.y,
-                       (unsigned)r2.z, (unsigned)r2.w};
-  int c0 = r0.x, c1 = r0.y, c2 = r0.z, c3 = r0.w;
+struct Row {
+  int4 occ, lo, hi;  // counts before the block; data words 0-3 and 4-7
+};
+
+__device__ __forceinline__ Row load_row(const FmConst& fm, int blk) {
+  const int4* r = reinterpret_cast<const int4*>(fm.blocks) + 3 * (size_t)blk;
+  return Row{__ldg(r), __ldg(r + 1), __ldg(r + 2)};
+}
+
+// A BWT position pos >= 0 as an offset into the stored bases: positions at
+// or past `primary` shift down by one, since the sentinel is not stored.
+__device__ __forceinline__ int stored(const FmConst& fm, int pos) {
+  return pos - (pos >= fm.primary ? 1 : 0);
+}
+
+__device__ __forceinline__ int block_of(const FmConst& fm, int p) {
+  return min(max(p >> 7, 0), fm.n_blocks - 1);
+}
+
+// cnt[c] = number of bases c in BWT[0..pos] (bwt_occ4) for the stored
+// offset p of pos, from p's block row r.
+__device__ __forceinline__ void count_row(const Row& r, int p, int cnt[4]) {
+  const int within = p & 127;
+  const unsigned words[8] = {(unsigned)r.lo.x, (unsigned)r.lo.y,
+                             (unsigned)r.lo.z, (unsigned)r.lo.w,
+                             (unsigned)r.hi.x, (unsigned)r.hi.y,
+                             (unsigned)r.hi.z, (unsigned)r.hi.w};
+  int c0 = r.occ.x, c1 = r.occ.y, c2 = r.occ.z, c3 = r.occ.w;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     // bases of word j at or before `within`
@@ -61,13 +79,25 @@ __device__ __forceinline__ void occ4(const FmConst& fm, int pos, int cnt[4]) {
 // l = the other side, s = the size. Outputs per base c: ok_k[c], ok_l[c],
 // ok_s[c]. Sums wrap as 32-bit two's complement (unsigned arithmetic), as
 // the int32 tensors of the plain version do, so stale entries agree too.
+// A position below 0 is the "before the first position" sentinel: it
+// counts nothing and reads nothing.
 __device__ __forceinline__ void extend4(const FmConst& fm, int k, int l, int s,
                                         int ok_k[4], int ok_l[4],
                                         int ok_s[4]) {
-  int tk[4], tl[4];
-  int kq = (int)((unsigned)k - 1u);
-  occ4(fm, kq, tk);
-  occ4(fm, (int)((unsigned)kq + (unsigned)s), tl);
+  const int kq = (int)((unsigned)k - 1u);
+  const int kl = (int)((unsigned)kq + (unsigned)s);
+  const int pk = stored(fm, kq), pl = stored(fm, kl);
+  const int bk = block_of(fm, pk), bl = block_of(fm, pl);
+  const bool has_k = kq >= 0, has_l = kl >= 0;
+  const bool one = has_k && has_l && bk == bl;
+  // every load before any count
+  Row rk{}, rl{};
+  if (has_k) rk = load_row(fm, bk);
+  if (has_l && !one) rl = load_row(fm, bl);
+  if (one) rl = rk;
+  int tk[4] = {0, 0, 0, 0}, tl[4] = {0, 0, 0, 0};
+  if (has_k) count_row(rk, pk, tk);
+  if (has_l) count_row(rl, pl, tl);
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     ok_s[c] = (int)((unsigned)tl[c] - (unsigned)tk[c]);

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -27,6 +29,7 @@ _lock = threading.Lock()
 _libs: dict = {}
 # nvcc's -Xptxas -v report (registers, spills, shared memory) per source
 build_logs: dict = {}
+_entries: dict = {}  # the bound C entry points by (kernel, symbol)
 
 
 def _nvcc() -> str:
@@ -86,6 +89,28 @@ def load_all(names) -> None:
             raise failed[0]
     for name in names:
         load(name)
+
+
+def entry(name: str, symbol: str, argtypes: list):
+    """The C function ``symbol`` of kernel ``name`` with its argument types
+    and an int result: built, loaded and bound on first use, then cached."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[(name, symbol)] = fn
+    return fn
+
+
+def launch_on(dev, fn, *args) -> int:
+    """fn(*args, stream) on device dev's current stream; enters dev's
+    context only when dev is not the current device already."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -120,14 +120,9 @@ def bwd_round(fm, lanes: BwdLanes, state: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("bwd_round")
-    fn = lib.mpibwa_bwd_round
-    if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P,
-                       _I, _P]
-        fn.restype = _I
-    return lib
+# the kernel's C entry point: (kernel, symbol, argument types)
+ENTRY = ("bwd_round", "mpibwa_bwd_round",
+         [_P] + [_I] * 6 + [_P, _I, _P, _P, _I, _P, _I, _P])
 
 
 def _check(fm, lanes: BwdLanes, state: torch.Tensor):
@@ -163,21 +158,16 @@ def bwd_round_kernel(fm, lanes: BwdLanes, state: torch.Tensor
     if state.device.type != "cuda":
         raise ValueError(f"no backward round kernel for device "
                          f"{state.device}")
-    blocks = fm.fused_blocks()
-    if blocks.device != state.device:
-        raise ValueError(f"state is on {state.device}, the index on "
-                         f"{blocks.device}")
+    fdev, fargs = fm.fused_args()
+    if fdev != state.device:
+        raise ValueError(f"state is on {state.device}, the index on {fdev}")
     NL, L = lanes.qrows.shape
     E = state.shape[1]
     if NL == 0 or E == 0:
         return state
-    lib = _lib()
-    with torch.cuda.device(state.device):
-        stream = torch.cuda.current_stream(state.device).cuda_stream
-        rc = lib.mpibwa_bwd_round(
-            blocks.data_ptr(), blocks.shape[0], *fm.l2_host, fm.primary,
-            lanes.qrows.data_ptr(), L, lanes.lane_off.data_ptr(),
-            lanes.minv.data_ptr(), NL, state.data_ptr(), E, stream)
+    rc = _build.launch_on(state.device, _build.entry(*ENTRY), *fargs,
+                          lanes.qrows.data_ptr(), L, lanes.lane_off.data_ptr(),
+                          lanes.minv.data_ptr(), NL, state.data_ptr(), E)
     if rc != 0:
         raise RuntimeError(f"backward round kernel launch failed "
                            f"(cudaError {rc})")

@@ -2,9 +2,10 @@
 
 The kernel replaces the TPU kernel mpibwa_tpu/ops/pallas_extend.py
 ``extend_batch_pallas``: the whole banded ksw_extend2 DP per problem, one
-thread per problem (see the note at the top of csrc/extend.cu for what
-bounds it and what the design does about it). It takes any 5x5 scoring
-matrix, so every matrix runs through the kernel on CUDA.
+warp per problem with the DP row spread over its lanes and the eh slots in
+registers (see the note at the top of csrc/extend.cu for what bounds it
+and what the design does about it). It takes any 5x5 scoring matrix, so
+every matrix runs through the kernel on CUDA.
 
 ``extend_batch_kernel`` takes the signature of the plain version
 ``ops.extend_batch.extend_batch``. On a CUDA tensor it launches the kernel
@@ -28,16 +29,9 @@ T_MAX = 1024  # largest target window (DeviceAligner.T_BUCKETS)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _count_lock = threading.Lock()  # the C chain session calls from threads
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("extend")
-    fn = lib.mpibwa_extend_batch
-    if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _P, _P, _P, _P]
-        fn.restype = _I
-    return lib
+# the kernel's C entry point: (kernel, symbol, argument types)
+ENTRY = ("extend", "mpibwa_extend_batch",
+         [_P] * 6 + [_I] * 7 + [_P, _P])
 
 
 def _check(qs, ts, qlens, tlens, params, mat):
@@ -88,17 +82,10 @@ def extend_batch_kernel(qs: torch.Tensor, ts: torch.Tensor,
     out = torch.empty((6, B), dtype=torch.int32, device=dev)
     if B == 0:
         return ExtendOut(*out.unbind(0))
-    lib = _lib()
-    with torch.cuda.device(dev):
-        qT = qs.t().contiguous()  # (Q, B): a warp reads 32 adjacent bytes
-        tT = ts.t().contiguous()
-        eh = torch.empty((2, Q + 1, B), dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mpibwa_extend_batch(
-            qT.data_ptr(), tT.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
-            params.data_ptr(), mat.data_ptr(), B, Q, T, o_del, e_del, o_ins,
-            e_ins, eh[0].data_ptr(), eh[1].data_ptr(), out.data_ptr(),
-            stream)
+    rc = _build.launch_on(dev, _build.entry(*ENTRY), qs.data_ptr(),
+                          ts.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
+                          params.data_ptr(), mat.data_ptr(), B, Q, T, o_del,
+                          e_del, o_ins, e_ins, out.data_ptr())
     if rc != 0:
         raise RuntimeError(f"extension kernel launch failed (cudaError {rc})")
     with _count_lock:

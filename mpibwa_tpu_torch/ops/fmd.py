@@ -101,6 +101,7 @@ class DeviceFMIndex:
         self._host_data = None if data is None else np.asarray(data,
                                                                np.uint32)
         self._fused = None
+        self._fused_args = None
 
     def o2_tables(self) -> torch.Tensor:
         return self._o2
@@ -121,6 +122,16 @@ class DeviceFMIndex:
             self._fused = torch.from_numpy(
                 np.ascontiguousarray(fused)).to(self.device)
         return self._fused
+
+    def fused_args(self) -> "tuple[torch.device, tuple]":
+        """(device, (pointer, n_blocks, L2[0], .., L2[3], primary)) of the
+        fused table: the leading arguments of the block kernels' C entry
+        points, worked out once."""
+        if self._fused_args is None:
+            t = self.fused_blocks()
+            self._fused_args = (t.device, (t.data_ptr(), t.shape[0],
+                                           *self.l2_host, self.primary))
+        return self._fused_args
 
     # -- batched occ4 over the classic blocks --------------------------------
 

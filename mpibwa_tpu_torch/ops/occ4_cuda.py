@@ -4,8 +4,11 @@
 The kernel replaces the TPU kernel mpibwa_tpu/ops/pallas_occ4.py
 ``extend_pallas``: bwt_occ4 at the two ends of each interval and the
 bidirectional bwt_extend arithmetic for all four bases (bwt.c:98-105,
-165-186, 262-275), one thread per entry, block rows read inside the kernel
-(see the note at the top of the source for its bound and design).
+165-186, 262-275), one thread per entry, block rows read inside the kernel,
+a row shared by both ends of an interval once (see the note at the top of
+the source for its bound and design). The launch path is kept short: the
+C entry point is bound once (``_build.entry``) and the fused table's
+arguments are cached on the index (``DeviceFMIndex.fused_args``).
 ``DeviceFMIndex.extend`` reaches it under MPIBWA_PALLAS=1.
 
 ``extend_kernel(fm, ik, is_back)`` takes (E, 3) int32 intervals at any E
@@ -36,13 +39,9 @@ def extend_blocks(fm, ik: torch.Tensor, is_back: int) -> torch.Tensor:
     return fm.extend_with(ik, is_back, fm.occ4)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("occ4_extend")
-    fn = lib.mpibwa_occ4_extend
-    if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P]
-        fn.restype = _I
-    return lib
+# the kernel's C entry point: (kernel, symbol, argument types)
+ENTRY = ("occ4_extend", "mpibwa_occ4_extend",
+         [_P] + [_I] * 6 + [_P, _I, _I, _P, _P])
 
 
 def extend_kernel(fm, ik: torch.Tensor, is_back: int) -> torch.Tensor:
@@ -53,26 +52,22 @@ def extend_kernel(fm, ik: torch.Tensor, is_back: int) -> torch.Tensor:
                         f"index, got {ik.dtype} / {fm.idt}")
     if ik.dim() != 2 or ik.shape[1] != 3:
         raise ValueError(f"ik must be (E, 3), got {tuple(ik.shape)}")
-    if ik.device.type == "cpu":
+    dev = ik.device
+    if dev.type == "cpu":
         return extend_blocks(fm, ik, is_back)
-    if ik.device.type != "cuda":
-        raise ValueError(f"no occ4 kernel for device {ik.device}")
-    blocks = fm.fused_blocks()
-    if blocks.device != ik.device:
-        raise ValueError(f"ik is on {ik.device}, the index on "
-                         f"{blocks.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"no occ4 kernel for device {dev}")
+    fdev, fargs = fm.fused_args()
+    if fdev != dev:
+        raise ValueError(f"ik is on {dev}, the index on {fdev}")
     if not ik.is_contiguous():
         raise ValueError("ik must be contiguous")
     E = ik.shape[0]
-    out = torch.empty((E, 4, 3), dtype=torch.int32, device=ik.device)
+    out = torch.empty((E, 4, 3), dtype=torch.int32, device=dev)
     if E == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(ik.device):
-        stream = torch.cuda.current_stream(ik.device).cuda_stream
-        rc = lib.mpibwa_occ4_extend(
-            blocks.data_ptr(), blocks.shape[0], *fm.l2_host, fm.primary,
-            ik.data_ptr(), E, 1 if is_back else 0, out.data_ptr(), stream)
+    rc = _build.launch_on(dev, _build.entry(*ENTRY), *fargs, ik.data_ptr(),
+                          E, 1 if is_back else 0, out.data_ptr())
     if rc != 0:
         raise RuntimeError(f"occ4 kernel launch failed (cudaError {rc})")
     with _count_lock:

@@ -114,3 +114,204 @@ def load_reads(path: str, limit: "int | None" = None):
     from mpibwa_tpu_torch.io.fastq import read_fastq
 
     return read_fastq(path, limit=limit)
+
+
+# -- edge cases of the extension DP and of the occ4 extension -----------------
+
+EXT_PEN = (6, 1, 6, 1)  # bwa-mem's default o_del, e_del, o_ins, e_ins
+
+
+def scmat(a: int, b: int) -> np.ndarray:
+    """bwa_fill_scmat(a, b): a on the diagonal, -b off it, -1 for N."""
+    m = np.full((5, 5), -1, np.int32)
+    m[:4, :4] = -b
+    m[np.arange(4), np.arange(4)] = a
+    return m
+
+
+def _ext_batch(rows, Q: int, T: int) -> "tuple[np.ndarray, ...]":
+    """rows of (query codes, target codes, w, end_bonus, zdrop, h0) ->
+    (q (B, Q), t (B, T) uint8 padded with 4, qlens, tlens, params)."""
+    B = len(rows)
+    q = np.full((B, Q), 4, np.uint8)
+    t = np.full((B, T), 4, np.uint8)
+    for b, (qs, ts, *_) in enumerate(rows):
+        q[b, : len(qs)] = qs
+        t[b, : len(ts)] = ts
+    ql = np.array([len(r[0]) for r in rows], np.int32)
+    tl = np.array([len(r[1]) for r in rows], np.int32)
+    par = np.array([r[2:] for r in rows], np.int32).reshape(B, 4)
+    return q, t, ql, tl, par
+
+
+def extend_edge_cases(seed: int) -> "list[dict]":
+    """Batches of extension problems that corner a row-parallel DP: each a
+    dict of name, q, t, qlens, tlens, params (the inputs of
+    ops.extend_batch.extend_batch), mat (5, 5) int32 and pen. All inputs
+    come from numpy's generator at ``seed``."""
+    rng = np.random.default_rng(seed)
+
+    def rand(n):
+        return rng.integers(0, 4, n).astype(np.uint8)
+
+    def similar(q, n, rate=0.03):
+        """n target bases that follow q, with substitutions (some N)."""
+        t = np.concatenate([q, rand(max(n - len(q), 0))])[:n].copy()
+        hit = rng.random(n) < rate
+        t[hit] = rng.integers(0, 5, int(hit.sum()))
+        return t
+
+    std = scmat(1, 4)
+    cases = []
+
+    def add(name, rows, Q, T, mat=std, pen=EXT_PEN):
+        q, t, ql, tl, par = _ext_batch(rows, Q, T)
+        cases.append({"name": name, "q": q, "t": t, "qlens": ql,
+                      "tlens": tl, "params": par,
+                      "mat": np.asarray(mat, np.int32), "pen": pen})
+
+    # a=3, b=4: query C A A ..., target A A ...: the row maximum of row i is
+    # reached at columns i and i+1 alike (the match after a one-base
+    # insertion scores as the mismatch on the diagonal), so every row ties
+    # across the columns j, j+1 and, row after row, across every lane
+    # boundary (31/32 and 63/64 among them); the highest column wins
+    tie = []
+    for qlen in (31, 32, 33, 63, 64, 65, 96, 100, 128):
+        qs = np.zeros(qlen, np.uint8)
+        qs[0] = 1
+        tie.append((qs, np.zeros(qlen + 20, np.uint8), 200, 5, 100, 30))
+    # the same tie starting deeper in the row, after a matching prefix
+    for pre in (27, 58):
+        x = rand(pre)
+        qs = np.concatenate([x, [1], np.zeros(60, np.uint8)])
+        ts = np.concatenate([x, np.zeros(80, np.uint8)])
+        tie.append((qs, ts, 200, 0, 0, 20))
+    add("row_max_ties_across_lanes", tie, 128, 256, scmat(3, 4))
+    # a run of N in the target: the band's right end falls back and then
+    # grows again, two columns a row, over slots written rows before
+    stale = []
+    for _ in range(8):
+        qs = rand(int(rng.integers(60, 128)))
+        start, nb = int(rng.integers(5, 40)), int(rng.integers(5, 40))
+        ts = np.concatenate([qs[:start], np.full(nb, 4, np.uint8),
+                             qs[start:]])[:250]
+        stale.append((qs, ts, 100, 5, 0, int(rng.integers(10, 90))))
+    add("end_regrows_over_old_slots", stale, 128, 256)
+    # z-drop on the first row: the first target base mismatches
+    zd = []
+    for zdrop in (1, 3, 3, 10):
+        qs = rand(50)
+        ts = similar(qs, 60, 0.0)
+        ts[0] = (qs[0] + 1) % 4
+        zd.append((qs, ts, 100, 5, zdrop, 40))
+    add("zdrop_on_first_row", zd, 64, 128)
+    # every cell of the first row is 0 (h0 no more than a mismatch): the
+    # row maximum is 0 and the DP stops
+    zero = []
+    for h0 in (1, 2, 3, 4):
+        qs = rand(40)
+        ts = similar(qs, 50, 0.0)
+        ts[0] = (qs[0] + 2) % 4
+        zero.append((qs, ts, 100, 5, 100, h0))
+    add("row_max_zero_break", zero, 64, 128)
+    # h0 <= o_ins + e_ins: the first-row fill chain is 0 past slot 0
+    small = [(qs, similar(qs, 70), 100, 5, 100, h0)
+             for h0, qs in ((h, rand(60)) for h in (1, 2, 5, 6, 7, 8))]
+    add("h0_at_most_oe_ins", small, 64, 128)
+    # qlen in {0, 1, 31, 32, 33, 128, 512} x tlen in {0, 1, 1024}
+    grid = []
+    for qlen in (0, 1, 31, 32, 33, 128, 512):
+        for tlen in (0, 1, 1024):
+            qs = rand(qlen)
+            grid.append((qs, similar(qs, tlen), 100, 5, 100,
+                         int(rng.integers(1, 60))))
+    add("qlen_tlen_extremes", grid, 512, 1024)
+    # a band of w = 1 and one no narrower than the query
+    band = []
+    for w in (1, 1, 150, 1000):
+        for qlen in (20, 101):
+            qs = rand(qlen)
+            band.append((qs, similar(qs, qlen + 30, 0.05), w, 5, 100, 25))
+    add("band_w1_and_w_at_least_qlen", band, 128, 256)
+    # end bonus and gscore at qlen: the whole query aligns (or nearly)
+    ends = []
+    for eb in (0, 5):
+        for qlen, mis in ((40, None), (70, 67), (101, 5), (101, None)):
+            qs = rand(qlen)
+            ts = similar(qs, qlen + 12, 0.0)
+            if mis is not None:
+                ts[mis] = (qs[mis] + 1) % 4
+            ends.append((qs, ts, 100, eb, 100, 15))
+    add("end_bonus_and_gscore_at_qlen", ends, 128, 256)
+    # an asymmetric matrix and other penalties (any 5x5 matrix goes
+    # through the kernel)
+    mat = rng.integers(-5, 4, (5, 5)).astype(np.int32)
+    mat[np.arange(4), np.arange(4)] = rng.integers(1, 4, 4)
+    odd = []
+    for _ in range(12):
+        qs = rand(int(rng.integers(1, 128)))
+        odd.append((qs, similar(qs, int(rng.integers(1, 256)), 0.08),
+                    int(rng.integers(1, 120)), int(rng.choice([0, 5])),
+                    int(rng.choice([0, 100])), int(rng.integers(1, 80))))
+    add("nonstandard_matrix", odd, 128, 256, mat, (5, 2, 4, 1))
+    # the caller's pad problems (qlen 1, h0 1, tlen 0, zero params) and
+    # empty ones
+    one = np.zeros(1, np.uint8)
+    pads = [(one, np.zeros(0, np.uint8), 0, 0, 0, 1)] * 4 + [
+        (np.zeros(0, np.uint8), rand(5), 100, 5, 100, 10),
+        (rand(5), np.zeros(0, np.uint8), 100, 5, 100, 10),
+        (one, rand(3), 0, 0, 0, 1)]
+    add("pads_and_empty", pads, 64, 128)
+    return cases
+
+
+EXT_CASES = [c["name"] for c in extend_edge_cases(0)]
+
+OCC4_CASES = ("one_block", "adjacent_blocks", "size_0", "k_0",
+              "around_primary", "last_position")
+
+
+def occ4_edge_intervals(fm, seed: int) -> "dict[str, np.ndarray]":
+    """(n, 3) int32 bi-intervals [x0, x1, x2] over fm (anything with
+    ``primary`` and ``seq_len``) that corner the block reads of the occ4
+    extension, by name (OCC4_CASES): both ends k-1 and k-1+x2 in one
+    128-bp block, in adjacent blocks, x2 = 0, x[k] = 0 (the sentinel end),
+    intervals that span or end on ``primary``, and the last position.
+    Both columns x0 and x1 carry each pattern, so either direction sees
+    it."""
+    rng = np.random.default_rng(seed)
+    n_pos = fm.seq_len + 1  # BWT positions 0..seq_len
+
+    def pair(k, s):
+        k = np.asarray(k, np.int64)
+        s = np.asarray(s, np.int64)
+        other = rng.integers(0, n_pos, len(k))
+        return np.concatenate([np.stack([k, other, s], 1),
+                               np.stack([other, k, s], 1)])
+
+    def at(p0, p1):
+        """(k, s) whose ends k-1 and k-1+s count in the stored bases at
+        offsets p0 <= p1 (BWT positions past primary are one higher)."""
+        pos0 = p0 + (p0 >= fm.primary)
+        return pos0 + 1, p1 + (p1 >= fm.primary) - pos0
+
+    out = {}
+    base = rng.integers(0, max((n_pos - 1) // 128 - 1, 1), 64) * 128
+    w0 = rng.integers(0, 100, 64)
+    out["one_block"] = pair(*at(base + w0, base + w0 + rng.integers(
+        1, 128 - w0)))
+    out["adjacent_blocks"] = pair(*at(base + 127 - rng.integers(0, 8, 64),
+                                      base + 128 + rng.integers(0, 90, 64)))
+    out["size_0"] = pair(rng.integers(0, n_pos, 64), np.zeros(64))
+    out["k_0"] = pair(np.zeros(16), rng.integers(0, 300, 16))
+    p = fm.primary
+    ks = np.concatenate([p - np.arange(0, 6), p + np.arange(1, 6),
+                         p - 130 + np.arange(3)])
+    ss = np.concatenate([np.full(6, 7), np.full(5, 1), np.full(3, 140)])
+    ks = np.concatenate([ks, p - 3 + np.arange(4), [p, p + 1]])
+    ss = np.concatenate([ss, 4 - np.arange(4), [0, 1]])  # end on primary
+    keep = (ks >= 0) & (ks + ss <= n_pos)
+    out["around_primary"] = pair(ks[keep], ss[keep])
+    out["last_position"] = pair([n_pos - 1, n_pos - 1, n_pos - 2, n_pos - 3],
+                                [1, 0, 2, 3])
+    return {k: v.astype(np.int32) for k, v in out.items()}

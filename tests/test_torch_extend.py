@@ -202,20 +202,190 @@ def test_extend_from_coords_matches_jax(toy_index):
     np.testing.assert_array_equal(got, want)
 
 
+def _edge_case(name):
+    return next(c for c in toy.extend_edge_cases(5) if c["name"] == name)
+
+
+def _edge_args(c):
+    return [torch.from_numpy(c[k]) for k in ("q", "t", "qlens", "tlens",
+                                            "params", "mat")]
+
+
+@pytest.mark.parametrize("name", toy.EXT_CASES)
+def test_plain_matches_jax_on_edge_cases(name):
+    """The plain version on the edge cases: against the Pallas kernel in
+    interpret mode where the matrix is bwa's standard one, else against the
+    scalar spec problem by problem."""
+    import jax.numpy as jnp
+
+    from mpibwa_tpu.ops.pallas_extend import (extend_batch_via_pallas,
+                                              standard_mat_ab)
+
+    c = _edge_case(name)
+    got = _torch_out(TE.extend_batch(*_edge_args(c), *c["pen"]))
+    if standard_mat_ab(c["mat"]) is not None:
+        want = _jax_out(extend_batch_via_pallas(
+            *map(jnp.asarray, (c["q"], c["t"], c["qlens"], c["tlens"],
+                               c["params"])), c["mat"], *c["pen"],
+            interpret=True))
+    else:
+        want = np.array([X.ksw_extend2(
+            c["q"][b, : c["qlens"][b]], c["t"][b, : c["tlens"][b]],
+            c["mat"].ravel(), *c["pen"], *[int(v) for v in c["params"][b]])
+            for b in range(len(c["qlens"]))])
+    np.testing.assert_array_equal(got, want)
+
+
+# -- a model of the kernel's warp -------------------------------------------
+
+LADDER = (1, 2, 3, 4, 5, 7, 9, 13, 17)  # columns a lane, csrc/extend.cu
+
+
+def _shfl_up(x, d):
+    """__shfl_up_sync over the 32 lanes: lanes below d keep their value."""
+    return np.concatenate([x[:d], x[:-d]])
+
+
+def _warp_model(q, t, qlen, tlen, par, mat, pen, C):
+    """numpy model of one warp of csrc/extend.cu with C columns a lane:
+    slots in a (32, C) layout, lane L holding columns L*C .. L*C+C-1; per
+    row the masked cell update, the in-lane decayed max scan and its 5-step
+    shuffle scan over the lane aggregates, the row maximum with ties to the
+    highest column (warp max, ballot of the lanes at it, highest lane), the
+    shift of H by one column, and the band trims as warp min/max over each
+    lane's first and last nonzero slot. Returns ksw_extend2's six
+    outputs."""
+    o_del, e_del, o_ins, e_ins = pen
+    oe_del, oe_ins = o_del + e_del, o_ins + e_ins
+    w, end_bonus, zdrop, h0 = (int(v) for v in par)
+    mat = np.asarray(mat, np.int64).reshape(25)
+    lane = np.arange(32)
+    j = lane[:, None] * C + np.arange(C)[None, :]
+    qpad = np.full(32 * C, 4, np.int64)
+    qpad[:qlen] = q[:qlen]
+    qb = qpad[j]
+    v1 = h0 - oe_ins if h0 > oe_ins else 0
+    vprev = v1 - (j - 2) * e_ins
+    vmin = vprev if e_ins > 0 else np.full_like(j, v1)
+    H = np.where(j == 0, h0, np.where(
+        j == 1, v1 if qlen >= 1 else 0,
+        np.where((j <= qlen) & (vmin > e_ins), vprev - e_ins, 0)))
+    E = np.zeros_like(H)
+    mmax = int(mat.max())
+    w = min(w, max(int((qlen * mmax + end_bonus - o_ins) / e_ins + 1.0), 1))
+    w = min(w, max(int((qlen * mmax + end_bonus - o_del) / e_del + 1.0), 1))
+    maxv, max_i, max_j, max_ie, gscore, max_off = h0, -1, -1, -1, -1, 0
+    beg, end = 0, qlen
+    for i in range(tlen):
+        beg = max(beg, i - w)
+        end = min(end, i + w + 1, qlen)
+        if beg >= end:
+            break
+        row = mat[5 * int(t[i]): 5 * int(t[i]) + 5]
+        h1_first = max(h0 - (o_del + e_del * (i + 1)), 0) if beg == 0 else 0
+        band = (j >= beg) & (j < end)
+        m = np.where(H != 0, H + row[qb], 0)
+        tv = np.where(band, np.maximum(m - oe_ins, 0), 0)
+        E_old = E
+        H = np.where(band, np.maximum(m, E_old), H)
+        E = np.where(band, np.maximum(np.maximum(m - oe_del, 0),
+                                      E_old - e_del), E_old)
+        g = np.empty_like(tv)
+        g[:, 0] = tv[:, 0]
+        for c in range(1, C):
+            g[:, c] = np.maximum(tv[:, c], g[:, c - 1] - e_ins)
+        s = g[:, -1].copy()
+        for d in (1, 2, 4, 8, 16):
+            s = np.where(lane >= d, np.maximum(s, _shfl_up(s, d)
+                                               - d * C * e_ins), s)
+        pre = _shfl_up(s, 1)
+        pre[0] = 0
+        F = np.concatenate(
+            [pre[:, None], np.maximum(g[:, :-1], pre[:, None]
+                                      - np.arange(1, C)[None, :] * e_ins)],
+            axis=1)
+        H = np.where(band, np.maximum(H, F), H)
+        hb = np.where(band, H, -1)
+        best = hb.max(axis=1)
+        bj = np.array([j[L, np.nonzero(hb[L] == best[L])[0][-1]]
+                       for L in range(32)])
+        mrun = int(best.max())
+        owner = int(np.nonzero(best == mrun)[0][-1])
+        mj = int(bj[owner])
+        h1_last = int(H[(end - 1) // C, (end - 1) % C])
+        left = _shfl_up(H[:, C - 1], 1)
+        prev = np.concatenate([left[:, None], H[:, :-1]], axis=1)
+        H = np.where(j == beg, h1_first,
+                     np.where((j > beg) & (j <= end), prev, H))
+        E = np.where(j == end, 0, E)
+        if end == qlen and gscore <= h1_last:
+            max_ie = i
+            gscore = max(gscore, h1_last)
+        if mrun == 0:
+            break
+        if mrun > maxv:
+            maxv, max_i, max_j = mrun, i, mj
+            max_off = max(max_off, abs(mj - i))
+        elif zdrop > 0:
+            if i - max_i > mj - max_j:
+                if maxv - mrun - ((i - max_i) - (mj - max_j)) * e_del > zdrop:
+                    break
+            elif maxv - mrun - ((mj - max_j) - (i - max_i)) * e_ins > zdrop:
+                break
+        nz = (H | E) != 0
+        lo = np.where(nz & (j >= beg) & (j < end), j, np.iinfo(np.int32).max
+                      ).min(axis=1).min()
+        hi = np.where(nz & (j >= beg) & (j <= end), j, -1).max(axis=1).max()
+        beg = min(int(lo), end)
+        last = int(hi) if hi >= beg else beg - 1
+        end = min(last + 2, qlen)
+    return maxv, max_j + 1, max_i + 1, max_ie + 1, gscore, max_off
+
+
+def _model_cases():
+    rng = np.random.default_rng(21)
+    yield from ((c["name"], c) for c in toy.extend_edge_cases(5))
+    for Q, T in BUCKETS:
+        q, t, ql, tl, par = _problems(rng, 6, Q, T)
+        yield f"random_{Q}x{T}", {"q": q, "t": t, "qlens": ql, "tlens": tl,
+                                  "params": par, "mat": MAT, "pen": PEN}
+
+
+@pytest.mark.parametrize("name", [n for n, _ in _model_cases()])
+def test_warp_model_matches_ksw_extend2(name):
+    """The kernel's design, as a numpy model of its warp, equals the scalar
+    spec on the edge cases and on random problems of every bucket, at the
+    problem's own C and at the largest (17 columns a lane)."""
+    c = dict(_model_cases())[name]
+    for b in range(len(c["qlens"])):
+        qlen, tlen = int(c["qlens"][b]), int(c["tlens"][b])
+        want = X.ksw_extend2(c["q"][b, :qlen], c["t"][b, :tlen],
+                             c["mat"].ravel(), *c["pen"],
+                             *[int(v) for v in c["params"][b]])
+        own = next(C for C in LADDER if C >= qlen // 32 + 1)
+        for C in sorted({own, 17}):
+            got = _warp_model(c["q"][b], c["t"][b], qlen, tlen,
+                              c["params"][b], c["mat"], c["pen"], C)
+            assert got == want, (b, C)
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_gpu():
     """The CUDA kernel equals the plain version on the card, at every
-    window bucket."""
+    window bucket and on the edge cases."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
     dev = torch.device("cuda")
     mat = torch.from_numpy(MAT).to(dev)
-    for Q, T in BUCKETS:
-        args = [torch.from_numpy(a).to(dev) for a in
-                _problems(np.random.default_rng(Q + T), 512, Q, T)]
+    cases = [([torch.from_numpy(a).to(dev) for a in
+               _problems(np.random.default_rng(Q + T), 512, Q, T)] + [mat],
+              PEN, (Q, T)) for Q, T in BUCKETS]
+    cases += [([a.to(dev) for a in _edge_args(c)], c["pen"], c["name"])
+              for c in toy.extend_edge_cases(5)]
+    for args, pen, tag in cases:
         before = extend_batch_kernel.launches
-        got = torch.stack(list(extend_batch_kernel(*args, mat, *PEN)))
+        got = torch.stack(list(extend_batch_kernel(*args, *pen)))
         torch.cuda.synchronize()
         assert extend_batch_kernel.launches == before + 1
-        want = torch.stack(list(TE.extend_batch(*args, mat, *PEN)))
-        assert torch.equal(got, want), (Q, T)
+        want = torch.stack(list(TE.extend_batch(*args, *pen)))
+        assert torch.equal(got, want), tag

@@ -73,6 +73,36 @@ def test_extend_blocks_equals_pallas_kernel_interpret(fms, is_back):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _block(fm, pos):
+    """The 128-bp block of the stored bases that BWT position pos counts
+    in (the sentinel is not stored)."""
+    return (pos - (pos >= fm.primary)) >> 7
+
+
+@pytest.mark.parametrize("name", toy.OCC4_CASES)
+def test_extend_blocks_equals_pallas_kernel_on_edge_cases(fms, name):
+    """The plain version against the Pallas kernel in interpret mode on
+    intervals that corner the kernel's block reads, both directions."""
+    import jax.numpy as jnp
+
+    from mpibwa_tpu.ops.pallas_occ4 import extend_pallas
+    from mpibwa_tpu_torch.ops.occ4_cuda import extend_blocks
+
+    jfm, tfm = fms
+    ik = toy.occ4_edge_intervals(tfm, 9)[name]
+    half = len(ik) // 2  # x0 carries the pattern, then x1
+    k = np.concatenate([ik[:half, 0], ik[half:, 1]]).astype(np.int64) - 1
+    ends = (_block(tfm, k), _block(tfm, k + ik[:, 2]))
+    if name == "one_block":
+        assert (ends[0] == ends[1]).all()
+    if name == "adjacent_blocks":
+        assert (ends[0] + 1 == ends[1]).all()
+    for is_back in (1, 0):
+        want = np.asarray(extend_pallas(jfm, jnp.asarray(ik), is_back, True))
+        got = extend_blocks(tfm, torch.from_numpy(ik), is_back)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("is_back", [1, 0], ids=["back", "fwd"])
 def test_extend_blocks_equals_extend_of_both_packages(fms, is_back,
                                                       monkeypatch):
@@ -247,7 +277,8 @@ def test_cli_mem_identical_under_the_knob(toy_paths, tmp_path, monkeypatch,
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_gpu(toy_paths):
     """The CUDA kernel equals the plain version on the card, both
-    directions, at entry counts that are no multiple of its block."""
+    directions, at entry counts that are no multiple of its block and on
+    the edge cases."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
     from mpibwa_tpu_torch.ops.fmd import DeviceFMIndex
@@ -255,8 +286,11 @@ def test_kernel_matches_plain_on_gpu(toy_paths):
 
     dev = torch.device("cuda")
     fm = DeviceFMIndex(load_index(toy_paths["ref"]), dev)
-    for n in (1, 1000, 65_537):
-        ik = torch.from_numpy(intervals(fm, max(n, 32), n)[:n]).to(dev)
+    cases = [intervals(fm, max(n, 32), n)[:n] for n in (1, 1000, 65_537)]
+    cases += list(toy.occ4_edge_intervals(fm, 9).values())
+    for case in cases:
+        ik = torch.from_numpy(case).to(dev)
+        n = len(case)
         for is_back in (1, 0):
             before = extend_kernel.launches
             got = extend_kernel(fm, ik, is_back)
