@@ -4,48 +4,47 @@
 Phases, one printed line (or more) each:
   1. the card's name and power limit (nvidia-smi);
   2. the three CUDA kernels (mpibwa_tpu_torch/csrc/extend.cu,
-     occ4_extend.cu, bwd_round.cu) and the first versions of kernels 1 and
-     3 (csrc/extend_v1.cu, occ4_extend_v1.cu: the same-call yardstick, no
-     program path launches them) built from the checkout, one nvcc each,
-     all started together; then kernel 1 and its first version held
-     against the plain PyTorch version (exact equality) on random problems
-     at every window bucket and on the edge cases of
-     tests/_torch_toy.extend_edge_cases, timed in turns (first version,
-     kernel, kernel, first version; medians of 5 CUDA-event timings after
-     a warm-up each); later (2b) the same on the two largest calls captured
-     from phase 4, where the plain version is timed too and the DP cells
-     the problems visit are counted;
+     occ4_extend.cu, bwd_pass.cu) built from the checkout, one nvcc each,
+     all started together; then kernel 1 held against the plain PyTorch
+     version (exact equality) on random problems at every window bucket
+     and on the edge cases of tests/_torch_toy.extend_edge_cases, timed
+     (median of 5 CUDA-event timings after a warm-up); later (2b) the same
+     on the two largest calls captured from phase 4, where the plain
+     version is timed too and the DP cells the problems visit are counted;
   3. a synthetic genome the length of GRCh38 chr1 (248,956,422 bp) with
      N holes and planted repeats, indexed with index/build.py and cached
      under build/genome/ by seed and size;
   4. `mpibwa_tpu_torch.cli mem -t 1` with MPIBWA_EXT=device on simulated
-     101-bp pairs (kernel launch counts reset just before);
+     101-bp pairs, the default backward engine otherwise (each backward
+     pass one launch of the pass kernel): kernels 1 and 2 (launch counts
+     reset just before);
   5. the same run with MPIBWA_EXT=native (every DP in C): the SAM must be
      byte-identical to phase 4's;
   6. the first pairs through the host spec engine (core/,
      Runtime(use_device=False)): byte-identical to the port's SAM on the
      same file;
   7. phases 4 and 6 for SE reads (R1);
-  8. phase 4's run with MPIBWA_PALLAS=1 (every flat backward round extends
-     through the fused occ4 kernel): SAM byte-identical to phase 4's;
-  9. phase 4's run with MPIBWA_BWD=pallas (the backward passes as fused
-     rounds in the round kernel): SAM byte-identical to phase 4's;
-  2c. the occ4 kernel and its first version against the plain version
-     (exact equality) on seeded intervals over the index, both directions,
-     E in {1,000, 65,536, 1,048,576}, on the largest batch captured from
-     phase 8 and on tests/_torch_toy.occ4_edge_intervals; both timed in
-     turns, the plain version and the O2 `extend` beside them (medians of
-     5, CUDA events), and the host time of one launch of each at E=1,000;
-  10. the runs of phases 4, 8 and 9 once more on the first
-     --traced-pairs pairs (5,000) under torch.profiler (CUDA activity
-     only): each kernel's own device time summed over the run ("run_ms",
-     over "run_pairs" pairs) and the card's busy share of the align time
-     (at 50,000 pairs the three traced runs take about 700 s on an H100,
-     most of it the profiler's processing of the trace);
-  2d. the round kernel against its plain round, round by round over the
-     entry state captured from phase 9's first backward call (all seven
-     state arrays equal after every round, and the emitted mems); a whole
-     pass of each timed (medians of 5), given per launch.
+  8. phase 4's run with MPIBWA_BWD=flat MPIBWA_PALLAS=1 (the flat backward
+     engine, every round extending through the fused occ4 kernel): SAM
+     byte-identical to phase 4's;
+  9. phase 4's run with MPIBWA_BWD=flat, then the default again, in turns
+     after phase 8: both SAMs byte-identical to phase 4's; reads/s and the
+     backward stages of each, and whether the default is slower than flat
+     against both of its neighbours (phase 4 before, the default after);
+  10. the default run and phase 8's once more on the first --traced-pairs
+     pairs (5,000) under torch.profiler (CUDA activity only): each
+     kernel's own device time summed over the run ("run_ms", over
+     "run_pairs" pairs) and the card's busy share of the align time;
+  2c. the occ4 kernel against the plain version (exact equality) on seeded
+     intervals over the index, both directions, E in {1,000, 65,536,
+     1,048,576}, on the largest batch captured from phase 8 and on
+     tests/_torch_toy.occ4_edge_intervals; timed beside the plain version
+     and the O2 `extend` (medians of 5, CUDA events);
+  2d. the pass kernel against the plain pass over the entry state captured
+     from phase 4's first backward call (all seven state arrays, the round
+     count and the emitted mems equal) and over the edge lanes of
+     tests/_torch_toy.bwd_edge_lanes at every register instance; a whole
+     pass timed (median of 5 after a warm-up) and its bound over the pass.
 Phases 4, 8 and 9 print each kernel's launches by batch size.
 Every launch count is set to 0 just before a run of the main path and read
 just after. Each kernel's bound is the larger of the bytes its inputs need
@@ -64,7 +63,6 @@ error.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
@@ -83,15 +81,16 @@ KERNELS = {
     "occ4_extend": {"name": "occ4_extend", "route": "cuda",
                     "source": "mpibwa_tpu_torch/csrc/occ4_extend.cu",
                     "replaces": "mpibwa_tpu/ops/pallas_occ4.py:107"},
-    "bwd_round": {"name": "bwd_round", "route": "cuda",
-                  "source": "mpibwa_tpu_torch/csrc/bwd_round.cu",
-                  "replaces": "mpibwa_tpu/ops/pallas_bwd.py:242"},
+    "bwd_pass": {"name": "bwd_pass", "route": "cuda",
+                 "source": "mpibwa_tpu_torch/csrc/bwd_pass.cu",
+                 "replaces": "mpibwa_tpu/ops/pallas_bwd.py:242"},
 }
 # each kernel's name in a profiler trace (csrc/*.cu)
 SYMBOLS = {"extend": "extend_kernel<", "occ4_extend": "occ4_extend_kernel",
-           "bwd_round": "bwd_round_kernel"}
-# the first versions of kernels 1 and 3, launched only here
-V1 = {"extend": "extend_v1", "occ4_extend": "occ4_extend_v1"}
+           "bwd_pass": "bwd_pass_kernel<"}
+# the earlier round kernel (one launch a round) at phase 2d's captured
+# shape, from PERF.md (H100 80GB HBM3, 700 W): the old design's yardstick
+OLD_PASS_MS, OLD_LAUNCH_MS = 2.8365, 0.0423
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_OPS_PER_S = 33.5e12  # half the lanes of its 67 TFLOP/s float32 rate
 # integer operations of one bwt_extend in the block kernels: two occ4 of
@@ -134,91 +133,21 @@ def random_problems(rng, B, Q, T, dev):
     return [torch.from_numpy(a).to(dev) for a in (q, t, ql, tl, par)]
 
 
-v1_launches = {"extend": 0, "occ4_extend": 0}
-
-
-def _v1_fn(kernel: str, symbol: str, argtypes):
-    """The C entry point of a first version, bound once, by attribute on
-    the library as the first wrappers bound theirs."""
-    from mpibwa_tpu_torch.ops import _build
-
-    fn = getattr(_build.load(V1[kernel]), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def extend_v1(qs, ts, qlens, tlens, params, mat, o_del, e_del, o_ins,
-              e_ins):
-    """csrc/extend_v1.cu through the launch path it had: windows transposed
-    to (Q, B) and (T, B) and the (2, Q+1, B) eh scratch allocated in the
-    call. Same signature and outputs as extend_batch_kernel."""
-    from mpibwa_tpu_torch.ops.extend_batch import ExtendOut
-
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn = _v1_fn("extend", "mpibwa_extend_batch_v1",
-                [P] * 6 + [I] * 7 + [P] * 4)
-    B, Q = qs.shape
-    T = ts.shape[1]
-    dev = qs.device
-    out = torch.empty((6, B), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        qT = qs.t().contiguous()
-        tT = ts.t().contiguous()
-        eh = torch.empty((2, Q + 1, B), dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(qT.data_ptr(), tT.data_ptr(), qlens.data_ptr(),
-                tlens.data_ptr(), params.data_ptr(), mat.data_ptr(), B, Q, T,
-                o_del, e_del, o_ins, e_ins, eh[0].data_ptr(),
-                eh[1].data_ptr(), out.data_ptr(), stream)
-    if rc != 0:
-        raise Failed(f"extend_v1 launch failed (cudaError {rc})")
-    v1_launches["extend"] += 1
-    return ExtendOut(*out.unbind(0))
-
-
-def occ4_v1(fm, ik, is_back):
-    """csrc/occ4_extend_v1.cu through the launch path it had (the fused
-    table looked up, the device entered and the stream asked for on every
-    call). Same signature and output as occ4_cuda.extend_kernel."""
-    P, I = ctypes.c_void_p, ctypes.c_int
-    blocks = fm.fused_blocks()
-    if blocks.device != ik.device:
-        raise Failed(f"ik is on {ik.device}, the index on {blocks.device}")
-    if not ik.is_contiguous():
-        raise Failed("ik must be contiguous")
-    E = ik.shape[0]
-    out = torch.empty((E, 4, 3), dtype=torch.int32, device=ik.device)
-    fn = _v1_fn("occ4_extend", "mpibwa_occ4_extend_v1",
-                [P] + [I] * 6 + [P, I, I, P, P])
-    with torch.cuda.device(ik.device):
-        stream = torch.cuda.current_stream(ik.device).cuda_stream
-        rc = fn(blocks.data_ptr(), blocks.shape[0], *fm.l2_host, fm.primary,
-                ik.data_ptr(), E, 1 if is_back else 0, out.data_ptr(), stream)
-    if rc != 0:
-        raise Failed(f"occ4_v1 launch failed (cudaError {rc})")
-    v1_launches["occ4_extend"] += 1
-    return out
-
-
 def max_err(got, want) -> int:
     if isinstance(got, tuple):
         got, want = torch.stack(list(got)), torch.stack(list(want))
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
 
 
-def extend_errs(args, pen) -> "tuple[int, int]":
-    """(kernel, first version) max abs difference from the plain version
-    over the six outputs (0 = exact)."""
+def extend_err(args, pen) -> int:
+    """The kernel's max abs difference from the plain version over the six
+    outputs (0 = exact)."""
     from mpibwa_tpu_torch.ops.extend_batch import extend_batch
     from mpibwa_tpu_torch.ops.extend_cuda import extend_batch_kernel
 
     got = extend_batch_kernel(*args, *pen)
-    old = extend_v1(*args, *pen)
     torch.cuda.synchronize()
-    want = extend_batch(*args, *pen)
-    return max_err(got, want), max_err(old, want)
+    return max_err(got, extend_batch(*args, *pen))
 
 
 def median_ms(fn, reps: int) -> float:
@@ -235,34 +164,10 @@ def median_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def in_turns(old, new, reps: int) -> "tuple[float, float, list]":
-    """(old ms, new ms, the four medians) timed old, new, new, old; each
-    version's time is the mean of its two medians."""
-    t = [median_ms(f, reps) for f in (old, new, new, old)]
-    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
-
-
-def host_us(fn, n: int = 200) -> float:
-    """Host microseconds of one call, over n calls without a sync."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    dt = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return dt / n * 1e6
-
-
-def fmt_turns(t) -> str:
-    return " / ".join(f"{v:.4f}" for v in t)
-
-
-def extend_turns(args, pen, reps: int) -> "tuple[float, float, list]":
+def extend_ms(args, pen, reps: int) -> float:
     from mpibwa_tpu_torch.ops.extend_cuda import extend_batch_kernel
 
-    return in_turns(lambda: extend_v1(*args, *pen),
-                    lambda: extend_batch_kernel(*args, *pen), reps)
+    return median_ms(lambda: extend_batch_kernel(*args, *pen), reps)
 
 
 def bound(nbytes: float, ops: float) -> "tuple[float, str]":
@@ -290,45 +195,44 @@ def extend_bound(args) -> "tuple[float, str, int]":
 
 
 def phase2_random(rng, dev, mat, toy) -> int:
-    """Kernel 1 and its first version against the plain version on random
-    problems at every bucket and on the edge cases; returns the worst
-    difference."""
+    """Kernel 1 against the plain version on random problems at every
+    bucket and on the edge cases; returns the worst difference."""
     from mpibwa_tpu_torch.ops import _build
 
     t0 = time.time()
-    names = list(KERNELS) + list(V1.values())
+    names = list(KERNELS)
     _build.load_all(names)
     log(f"phase 2 build: nvcc sm_90a, {len(names)} sources side by side, "
         f"{time.time() - t0:.2f}s")
     for name in names:
+        # each instance's entry (mangled: ILi4E = the template argument 4),
+        # then its registers and spills
         regs = [ln.strip()
                 for ln in _build.build_logs.get(name, "").splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "registers" in ln or "spill" in ln
+                or "Compiling entry" in ln]
         log(f"phase 2 build {name}: "
             + ("; ".join(regs) or "library already built under build/kernels"))
     worst = 0
     for (Q, T), B in [(b, 4096) for b in BUCKETS] + [((128, 256), 65536)]:
         args = random_problems(rng, B, Q, T, dev) + [mat]
-        err, err1 = extend_errs(args, PEN)
-        old, new, t = extend_turns(args, PEN, 5)
+        err = extend_err(args, PEN)
+        ms = extend_ms(args, PEN, 5)
         log(f"phase 2 random problems Q={Q} T={T} B={B}: max_abs_err="
-            f"{err} (first version {err1}); kernel {new:.4f} ms, first "
-            f"version {old:.4f} ms (turns v1/new/new/v1 {fmt_turns(t)}, "
-            f"medians of 5 after a warm-up, CUDA events)")
-        worst = max(worst, err, err1)
+            f"{err}; kernel {ms:.4f} ms (median of 5 after a warm-up, CUDA "
+            f"events)")
+        worst = max(worst, err)
     for c in toy.extend_edge_cases(int(rng.integers(1 << 30))):
         args = [torch.from_numpy(c[k]).to(dev) for k in
                 ("q", "t", "qlens", "tlens", "params", "mat")]
-        err, err1 = extend_errs(args, c["pen"])
-        old, new, _ = extend_turns(args, c["pen"], 3)
+        err = extend_err(args, c["pen"])
+        ms = extend_ms(args, c["pen"], 5)
         B, Q = c["q"].shape
         log(f"phase 2 edge case {c['name']} (B={B}, Q={Q}, "
-            f"T={c['t'].shape[1]}): max_abs_err={err} (first version "
-            f"{err1}); kernel {new:.4f} ms, first version {old:.4f} ms")
-        worst = max(worst, err, err1)
+            f"T={c['t'].shape[1]}): max_abs_err={err}; kernel {ms:.4f} ms")
+        worst = max(worst, err)
     if worst:
-        raise Failed("kernel 1 or its first version disagrees with the "
-                     "plain version")
+        raise Failed("kernel 1 disagrees with the plain version")
     return worst
 
 
@@ -387,9 +291,9 @@ def build_genome(seed: int, n: int) -> "tuple[str, str]":
 class Spy:
     """Records the Runtime the CLI builds, a few extension kernel calls (the
     largest B) for phase 2b, the largest occ4 batch for phase 2c, the first
-    fused backward call for phase 2d and the batch size of every wrapper
-    call that launches a kernel. The launch counts stay on the wrappers
-    themselves."""
+    backward pass through the pass kernel for phase 2d and the batch size
+    of every wrapper call that launches a kernel. The launch counts stay on
+    the wrappers themselves."""
 
     def __init__(self):
         from mpibwa_tpu_torch.ops import bwd_cuda, extend_cuda, occ4_cuda
@@ -405,10 +309,10 @@ class Spy:
         self._real = extend_cuda.extend_batch_kernel
         self._real_occ4 = occ4_cuda.extend_kernel
         self._real_bwd = bwd_cuda.run_backward_fused
-        self._real_round = bwd_cuda.bwd_round_kernel
+        self._real_pass = bwd_cuda.bwd_pass_kernel
         self.wrappers = {"extend": extend_cuda.extend_batch_kernel,
                          "occ4_extend": occ4_cuda.extend_kernel,
-                         "bwd_round": bwd_cuda.bwd_round_kernel}
+                         "bwd_pass": bwd_cuda.bwd_pass_kernel}
         self._rt_init = Runtime.__init__
         spy = self
 
@@ -455,15 +359,15 @@ class Spy:
             return spy._real_bwd(fm, qrows, entry, n_lanes, x0, minv,
                                  lane_off, **k)
 
-        def size_round(fm, lanes, state):
-            return sized("bwd_round", spy._real_round, state.shape[1], fm,
-                         lanes, state)
+        def size_pass(fm, lanes, state, rounds=None):
+            return sized("bwd_pass", spy._real_pass, state.shape[1], fm,
+                         lanes, state, rounds)
 
         Runtime.__init__ = rt_init
         extend_cuda.extend_batch_kernel = capture
         occ4_cuda.extend_kernel = capture_occ4
         bwd_cuda.run_backward_fused = capture_bwd
-        bwd_cuda.bwd_round_kernel = size_round
+        bwd_cuda.bwd_pass_kernel = size_pass
 
     @property
     def launches(self) -> dict:
@@ -490,7 +394,7 @@ class Spy:
         extend_cuda.extend_batch_kernel = self._real
         occ4_cuda.extend_kernel = self._real_occ4
         bwd_cuda.run_backward_fused = self._real_bwd
-        bwd_cuda.bwd_round_kernel = self._real_round
+        bwd_cuda.bwd_pass_kernel = self._real_pass
 
     def reset(self):
         for fn in self.wrappers.values():
@@ -503,7 +407,8 @@ class Spy:
 def run_cli(workdir: str, argv: "list[str]", spy: Spy, ext: str,
             knobs: "dict | None" = None) -> dict:
     """`cli mem` in workdir with -o out; returns its SAM bytes and stats.
-    knobs: MPIBWA_PALLAS / MPIBWA_BWD for this run (unset otherwise)."""
+    knobs: MPIBWA_PALLAS / MPIBWA_BWD for this run (unset otherwise: the
+    defaults)."""
     from mpibwa_tpu_torch import cli
 
     os.makedirs(workdir, exist_ok=True)
@@ -620,29 +525,28 @@ def seeded_intervals(rng, fm, n: int) -> torch.Tensor:
     return torch.from_numpy(ik).to(fm.device)
 
 
-def distinct_rows(fm, k: torch.Tensor, s: torch.Tensor) -> int:
-    """Block rows that bwt_extend needs for intervals of rank side k and
-    size s, each counted once over the whole batch however many ends fall
-    in it: the 128-bp blocks of the ends k-1 and k-1+s, none for a
-    sentinel end (position < 0)."""
+def block_ids(fm, k: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The distinct block rows that bwt_extend reads for intervals of rank
+    side k and size s: the 128-bp blocks of the ends k-1 and k-1+s, none
+    for a sentinel end (position < 0)."""
     n_blocks = fm.fused_blocks().shape[0]
     p = torch.cat([k.long() - 1, k.long() - 1 + s.long()])
     p = p[p >= 0]
-    blk = ((p - (p >= fm.primary).long()) >> 7).clamp(0, n_blocks - 1)
-    return int(torch.unique(blk).numel())
+    return torch.unique(
+        ((p - (p >= fm.primary).long()) >> 7).clamp(0, n_blocks - 1))
 
 
 def occ4_bytes(fm, ik: torch.Tensor) -> "tuple[float, int]":
     """(bytes, block rows) a backward extension of ik needs: 12 B in and
     48 B out an entry, 48 B for each distinct block row of the batch."""
-    rows = distinct_rows(fm, ik[:, 0], ik[:, 2])
+    rows = int(block_ids(fm, ik[:, 0], ik[:, 2]).numel())
     return 60.0 * ik.shape[0] + 48.0 * rows, rows
 
 
 def phase2c(rng, fm, main_ik, toy) -> dict:
-    """occ4 kernel == its first version == extend_blocks (== the O2 extend
-    on seeded intervals); both versions timed in turns at every E and at
-    the main path's largest batch. Returns the kernels-line numbers."""
+    """occ4 kernel == extend_blocks (== the O2 extend on seeded intervals),
+    timed at every E and at the main path's largest batch. Returns the
+    kernels-line numbers."""
     from mpibwa_tpu_torch.ops.occ4_cuda import extend_blocks, extend_kernel
 
     worst = 0
@@ -658,131 +562,145 @@ def phase2c(rng, fm, main_ik, toy) -> dict:
         err = 0
         for is_back in (1, 0):
             got = extend_kernel(fm, ik, is_back)
-            old = occ4_v1(fm, ik, is_back)
             torch.cuda.synchronize()
             want = extend_blocks(fm, ik, is_back)
-            err = max(err, max_err(got, want), max_err(old, want))
+            err = max(err, max_err(got, want))
             if tag == "seeded":  # valid intervals: the O2 path agrees too
                 err = max(err, max_err(got, fm.extend(ik, is_back)))
         worst = max(worst, err)
         if tag.startswith("edge"):
             log(f"phase 2c occ4 kernel, {tag}, E={E}: max_abs_err={err} "
-                f"(kernel and first version, both directions)")
+                f"(both directions)")
             continue
-        old_ms, ms, t = in_turns(lambda: occ4_v1(fm, ik, 1),
-                                 lambda: extend_kernel(fm, ik, 1), 5)
+        ms = median_ms(lambda: extend_kernel(fm, ik, 1), 5)
         plain_ms = median_ms(lambda: extend_blocks(fm, ik, 1), 5)
         o2_ms = median_ms(lambda: fm.extend(ik, 1), 5)
         nbytes, rows = occ4_bytes(fm, ik)
         b_ms, b_by = bound(nbytes, OPS_PER_EXTENSION * E)
-        log(f"phase 2c occ4 kernel, {tag}, E={E}: max_abs_err={err} (kernel "
-            f"and first version, both directions); kernel {ms:.4f} ms, first "
-            f"version {old_ms:.4f} ms (turns v1/new/new/v1 {fmt_turns(t)}), "
-            f"plain {plain_ms:.4f} ms, O2 extend {o2_ms:.4f} ms (medians of "
-            f"5 after a warm-up, CUDA events); bound {b_ms:.5f} ms by {b_by} "
-            f"({rows} distinct block rows, {rows / E:.3f} an entry; "
-            f"{nbytes / E:.1f} B an entry)")
-        if E == 1_000:
-            h = [host_us(f) for f in (lambda: occ4_v1(fm, ik, 1),
-                                      lambda: extend_kernel(fm, ik, 1),
-                                      lambda: extend_kernel(fm, ik, 1),
-                                      lambda: occ4_v1(fm, ik, 1))]
-            log(f"phase 2c occ4 host time of one launch at E={E}: kernel "
-                f"{(h[1] + h[2]) / 2:.2f} us, first version "
-                f"{(h[0] + h[3]) / 2:.2f} us (turns v1/new/new/v1 "
-                f"{' / '.join(f'{v:.2f}' for v in h)}; 200 launches "
-                f"without a sync, host clock); of it: "
-                + host_parts(fm, ik))
-        res = {"ms": ms, "ms_v1": old_ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by}
+        log(f"phase 2c occ4 kernel, {tag}, E={E}: max_abs_err={err} (both "
+            f"directions); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, O2 "
+            f"extend {o2_ms:.4f} ms (medians of 5 after a warm-up, CUDA "
+            f"events); bound {b_ms:.5f} ms by {b_by} ({rows} distinct block "
+            f"rows, {rows / E:.3f} an entry; {nbytes / E:.1f} B an entry)")
+        res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by}
     if worst:
-        raise Failed("occ4 kernel or its first version disagrees with its "
-                     "plain version")
+        raise Failed("occ4 kernel disagrees with its plain version")
     return dict(res, max_abs_err=worst)
 
 
-def host_parts(fm, ik) -> str:
-    """Host microseconds of the pieces of one occ4 wrapper call."""
-    from mpibwa_tpu_torch.ops import _build, occ4_cuda
+def pass_counts(fm, lanes, state0) -> "tuple[torch.Tensor, dict]":
+    """The plain pass round by round from state0: its final state, and its
+    rounds, live entry-rounds, warp-rounds (lane-rounds with a live entry:
+    one warp each), slot-rounds (the 32-entry slots those warps step) and
+    the distinct block rows the whole pass reads (the union over rounds)."""
+    from mpibwa_tpu_torch.ops import bwd_cuda as BC
 
-    E = ik.shape[0]
-    _, fargs = fm.fused_args()
-    out = torch.empty((E, 4, 3), dtype=torch.int32, device=ik.device)
-    stream = torch.cuda.current_stream().cuda_stream
-    fn = _build.entry(*occ4_cuda.ENTRY)
-    parts = {
-        "torch.empty": lambda: torch.empty((E, 4, 3), dtype=torch.int32,
-                                           device=ik.device),
-        "torch.cuda.current_device + current_stream": lambda: (
-            torch.cuda.current_device(),
-            torch.cuda.current_stream(ik.device).cuda_stream),
-        "C entry point (ctypes + launch)": lambda: fn(
-            *fargs, ik.data_ptr(), E, 1, out.data_ptr(), stream),
-    }
-    return "; ".join(f"{k} {host_us(f):.2f} us" for k, f in parts.items())
+    L = lanes.qrows.shape[1]
+    n_lane = (lanes.lane_off[1:] - lanes.lane_off[:-1]).long()
+    st = state0.clone()
+    c = {"rounds": 0, "live_rounds": 0, "warp_rounds": 0, "slot_rounds": 0}
+    ids = []
+    while c["rounds"] < L + 2 and bool(st[BC.LIVE].any()):
+        live = st[BC.LIVE] != 0
+        c["live_rounds"] += int(live.sum())
+        lv = torch.unique(lanes.lane_e[live])
+        c["warp_rounds"] += int(lv.numel())
+        c["slot_rounds"] += int(((n_lane[lv] + 31) // 32).sum())
+        i = st[BC.I].long()
+        qi = lanes.qrows[lanes.lane_e, i.clamp(0, L - 1)]
+        ext = live & (i >= 0) & (i < L) & (qi < 4)
+        ids.append(block_ids(fm, st[BC.IK0][ext], st[BC.IK2][ext]))
+        st = BC.bwd_round(fm, lanes, st)
+        c["rounds"] += 1
+    c["rows"] = int(torch.unique(torch.cat(ids)).numel()) if ids else 0
+    return st, c
 
 
-def phase2d(fm, call) -> dict:
-    """Round kernel == bwd_round round by round from the captured entry
-    state, and the same mems; a whole pass of each timed, per launch."""
+def check_pass(fm, lanes, state0, want, want_rounds: int,
+               max_len=None) -> "tuple[int, torch.Tensor]":
+    """The pass kernel on a copy of state0, at the slot count of max_len
+    (the lanes' own by default): exactly one launch, and (the max abs
+    difference from want over all 7 state arrays and the round count, the
+    kernel's state)."""
+    from mpibwa_tpu_torch.ops import bwd_cuda as BC
+
+    st = state0.clone()
+    rounds = torch.zeros(1, dtype=torch.int32, device=st.device)
+    n0 = BC.bwd_pass_kernel.launches
+    BC.bwd_pass_kernel(fm, lanes if max_len is None
+                       else lanes._replace(max_len=max_len), st, rounds)
+    torch.cuda.synchronize()
+    if BC.bwd_pass_kernel.launches != n0 + 1:
+        raise Failed("a backward pass took other than one launch")
+    return max(max_err(st, want), abs(int(rounds[0]) - want_rounds)), st
+
+
+def phase2d(fm, call, toy, seed: int) -> dict:
+    """Pass kernel == bwd_pass over the captured entry state (all 7 state
+    arrays, the round count, the mems) and over the edge lanes at every
+    slot count; a whole pass timed; its bound over the pass."""
     from mpibwa_tpu_torch.ops import bwd_cuda as BC
 
     qrows, entry, x0, minv, lane_off = call
+    dev = qrows.device
     lanes, state0 = BC.entry_state(qrows, entry, x0, minv, lane_off)
     E, NL, L = state0.shape[1], qrows.shape[0], qrows.shape[1]
-    kst, pst = state0.clone(), state0.clone()
-    worst = rounds = live_rounds = live_lanes = rows = 0
-    while bool(pst[BC.LIVE].any()):
-        live = pst[BC.LIVE] != 0
-        live_rounds += int(live.sum())
-        live_lanes += int(torch.unique(lanes.lane_e[live]).numel())
-        # the entries that extend read their block rows, each distinct row
-        # of the round counted once
-        i = pst[BC.I].long()
-        qi = lanes.qrows[lanes.lane_e, i.clamp(0, L - 1)]
-        ext = live & (i >= 0) & (i < L) & (qi < 4)
-        rows += distinct_rows(fm, pst[BC.IK0][ext], pst[BC.IK2][ext])
-        pst = BC.bwd_round(fm, lanes, pst)
-        BC.bwd_round_kernel(fm, lanes, kst)
-        torch.cuda.synchronize()
-        worst = max(worst, max_err(kst, pst))
-        rounds += 1
-        if rounds > qrows.shape[1] + 2:
-            raise Failed("backward pass did not end")
+    want, c = pass_counts(fm, lanes, state0)
+    worst, kst = check_pass(fm, lanes, state0, want, c["rounds"])
     mems_k = BC.pack_emitted(kst, entry[1], lanes.lane_e)
-    mems_p = BC.pack_emitted(pst, entry[1], lanes.lane_e)
+    mems_p = BC.pack_emitted(want, entry[1], lanes.lane_e)
     if mems_k.shape != mems_p.shape or (mems_k != mems_p).any():
-        raise Failed("round kernel and plain round emit different mems")
+        raise Failed("pass kernel and plain pass emit different mems")
 
-    def whole_pass(step, copies):
-        st = copies.pop()
-        for _ in range(rounds):
-            st = step(fm, lanes, st)
+    pk = toy.pack_bwd_lanes(toy.bwd_edge_lanes(fm, seed))
+    el, es = BC.entry_state(
+        torch.from_numpy(pk["q"]).to(dev),
+        tuple(torch.from_numpy(pk[k]).to(dev)
+              for k in ("ik", "info", "lane", "live")),
+        pk["x0"], pk["minv"], pk["lane_off"])
+    e_rounds = torch.zeros(1, dtype=torch.int32, device=dev)
+    e_want = BC.bwd_pass(fm, el, es.clone(), e_rounds)
+    for max_len in (1, 33, 65, 129):  # slot counts 1, 2, 4, 8
+        err, _ = check_pass(fm, el, es, e_want, int(e_rounds[0]), max_len)
+        worst = max(worst, err)
+        log(f"phase 2d pass kernel, edge lanes of tests/_torch_toy.py "
+            f"({pk['NL']} lanes, E={pk['E']}, longest {el.max_len}, "
+            f"{int(e_rounds[0])} rounds) at {BC.slot_count(max_len)} "
+            f"slot(s): max_abs_err={err} over all 7 state arrays and the "
+            f"round count")
 
     reps = 5
     copies = [state0.clone() for _ in range(reps + 1)]
-    pass_ms = median_ms(lambda: whole_pass(BC.bwd_round_kernel, copies), reps)
+    ms = median_ms(lambda: BC.bwd_pass_kernel(fm, lanes, copies.pop()),
+                   reps)
     copies = [state0.clone() for _ in range(reps + 1)]
-    plain_pass_ms = median_ms(lambda: whole_pass(BC.bwd_round, copies), reps)
-    # a live entry: 7 state words in and out (56 B); a lane with live
-    # entries: its query base, min_intv and two lane offsets (13 B); each
-    # distinct block row of a round: 48 B
-    nbytes = (56 * live_rounds + 13 * live_lanes + 48 * rows) / rounds
-    b_ms, b_by = bound(nbytes, OPS_PER_EXTENSION * live_rounds / rounds)
-    log(f"phase 2d round kernel, entry state of phase 9's first backward "
-        f"call: E={E} entries, {NL} lanes, {rounds} rounds, {live_rounds} "
-        f"live entry-rounds in {live_lanes} live lane-rounds reading {rows} "
-        f"distinct block rows (summed over rounds), {len(mems_k)} mems: "
-        f"max_abs_err={worst} over all 7 state arrays after every round, "
-        f"mems equal; whole pass kernel {pass_ms:.4f} ms, plain "
-        f"{plain_pass_ms:.4f} ms (medians of {reps} after a warm-up, CUDA "
-        f"events) = {pass_ms / rounds:.4f} / {plain_pass_ms / rounds:.4f} ms "
-        f"a launch; bound {b_ms:.5f} ms a launch by {b_by}")
+    plain_ms = median_ms(lambda: BC.bwd_pass(fm, lanes, copies.pop()), reps)
+    # every byte once over the pass: 7 state words of each entry in and out
+    # (56 B), each lane's query row, offsets and min_intv (L + 8 B), each
+    # distinct block row (48 B)
+    nbytes = 56 * E + NL * (L + 8) + 48 * c["rows"]
+    b_ms, b_by = bound(nbytes, OPS_PER_EXTENSION * c["live_rounds"])
+    log(f"phase 2d pass kernel, entry state of phase 4's first backward "
+        f"call: E={E} entries, {NL} lanes (longest {lanes.max_len}: "
+        f"{BC.slot_count(lanes.max_len)} slot(s)), {c['rounds']} rounds, "
+        f"{c['live_rounds']} live entry-rounds in {c['warp_rounds']} "
+        f"warp-rounds stepping {c['slot_rounds']} slots (live thread share "
+        f"{c['live_rounds'] / (32 * max(c['warp_rounds'], 1)):.4f} of 32 a "
+        f"warp-round, {c['live_rounds'] / (32 * max(c['slot_rounds'], 1)):.4f}"
+        f" of 32 a slot), {c['rows']} distinct block rows over the pass, "
+        f"{len(mems_k)} mems: max_abs_err={worst} over all 7 state arrays, "
+        f"the round count and the edge lanes, mems equal; one launch a "
+        f"pass: kernel {ms:.4f} ms, plain pass {plain_ms:.4f} ms (medians of "
+        f"{reps} after a warm-up, CUDA events); the earlier round kernel at "
+        f"this shape {OLD_PASS_MS} ms a pass, {OLD_LAUNCH_MS} ms a launch "
+        f"(PERF.md); bound {b_ms:.5f} ms by {b_by} ({nbytes} B, "
+        f"{OPS_PER_EXTENSION * c['live_rounds']:.0f} operations), "
+        f"{b_ms / ms:.4f} of the kernel's time")
     if worst:
-        raise Failed("round kernel disagrees with its plain round")
-    return {"max_abs_err": worst, "ms": pass_ms / rounds,
-            "plain_ms": plain_pass_ms / rounds, "bound_ms": b_ms,
-            "bound_by": b_by}
+        raise Failed("pass kernel disagrees with its plain pass")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def report_sizes(tag: str, r: dict, kernel: str) -> None:
@@ -791,11 +709,12 @@ def report_sizes(tag: str, r: dict, kernel: str) -> None:
         f"by batch size {json.dumps(r['sizes'][kernel])}")
 
 
-def profiled_run(tag, workdir, argv, spy, knobs, kernel, base_sam) -> dict:
+def profiled_run(tag, workdir, argv, spy, knobs, kernels, base_sam) -> dict:
     """A main-path run again under torch.profiler with CUDA activity only:
-    the kernel's own device time summed over all its launches, and the
+    each kernel's own device time summed over all its launches, and the
     device time of everything the run put on the card. Its SAM must equal
-    base_sam, where given."""
+    base_sam, where given. Returns per kernel {run_ms, run_launches} and
+    the SAM."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -803,34 +722,53 @@ def profiled_run(tag, workdir, argv, spy, knobs, kernel, base_sam) -> dict:
     if base_sam is not None and r["sam"] != base_sam:
         raise Failed(f"{tag}: SAM differs from the untraced run's")
     rows = prof.key_averages()
-    mine = [e for e in rows if SYMBOLS[kernel] in e.key]
-    dev_ms = sum(e.device_time_total for e in mine) / 1e3
-    n = sum(e.count for e in mine)
-    if n != r["launches"][kernel]:
-        raise Failed(f"{tag}: {n} {kernel} launches traced of "
-                     f"{r['launches'][kernel]}")
     busy = sum(e.device_time_total for e in rows) / 1e6
-    log(f"{tag} {kernel} device time over the run (torch.profiler, CUDA "
-        f"activity only): {n} launches, {dev_ms:.4f} ms = "
-        f"{dev_ms / max(n, 1):.4f} ms a launch, by batch size "
-        f"{json.dumps(r['sizes'][kernel])}; everything on the card "
-        f"{busy:.3f} s in {r['align']:.2f} s of align time (busy share "
-        f"{busy / r['align']:.3f})")
-    return {"run_ms": dev_ms, "run_launches": n, "sam": r["sam"]}
+    out = {"sam": r["sam"]}
+    for kernel in kernels:
+        mine = [e for e in rows if SYMBOLS[kernel] in e.key]
+        dev_ms = sum(e.device_time_total for e in mine) / 1e3
+        n = sum(e.count for e in mine)
+        if n != r["launches"][kernel] or n <= 0:
+            raise Failed(f"{tag}: {n} {kernel} launches traced of "
+                         f"{r['launches'][kernel]}")
+        log(f"{tag} {kernel} device time over the run (torch.profiler, CUDA "
+            f"activity only): {n} launches, {dev_ms:.4f} ms = "
+            f"{dev_ms / n:.4f} ms a launch, by batch size "
+            f"{json.dumps(r['sizes'][kernel])}")
+        out[kernel] = {"run_ms": dev_ms, "run_launches": n}
+    log(f"{tag} everything on the card {busy:.3f} s in {r['align']:.2f} s "
+        f"of align time (busy share {busy / r['align']:.3f})")
+    return out
 
 
-def knob_run(tag, workdir, argv, spy, knobs, kernel, base_sam, n_reads):
-    """A main-path run under a knob: its kernel launched, its SAM equal to
-    phase 4's."""
+def knob_run(tag, workdir, argv, spy, knobs, kernels, base_sam, n_reads,
+             absent=()):
+    """A main-path run under knobs: each of its kernels launched, none of
+    the absent ones, its SAM equal to phase 4's."""
     r = run_cli(workdir, argv, spy, "device", knobs)
     report_run(tag, r, n_reads)
     same = r["sam"] == base_sam
     log(f"{tag} SAM == phase 4's: {same}")
-    if r["launches"][kernel] <= 0:
-        raise Failed(f"{tag}: the main path launched no {kernel} kernel")
+    for kernel in kernels:
+        if r["launches"][kernel] <= 0:
+            raise Failed(f"{tag}: the main path launched no {kernel} kernel")
+    for kernel in absent:
+        if r["launches"][kernel] != 0:
+            raise Failed(f"{tag}: {kernel} launched under {knobs}")
     if not same:
         raise Failed(f"{tag}: SAM differs from the default run's")
     return r
+
+
+def backward_stages(r: dict, n_reads: int) -> str:
+    """reads/s and the backward stages of a run, for phase 9's turns."""
+    st = r["seed_times"]
+    return (f"{n_reads / r['align']:.1f} reads/s (align {r['align']:.2f} s), "
+            f"bwd1 {st.get('bwd1', 0.0):.3f} s, pass2 "
+            f"{st.get('pass2', 0.0):.3f} s, bwd_segments "
+            f"{st.get('bwd_segments', 0)}, bwd_rounds "
+            f"{st.get('bwd_rounds', 0)}, pass kernel launches "
+            f"{r['launches']['bwd_pass']}")
 
 
 def main() -> int:
@@ -866,7 +804,6 @@ def main() -> int:
     mat = torch.from_numpy(fill_scmat(1, 4).reshape(5, 5).astype(np.int32)
                            ).to(dev)
     worst = phase2_random(rng, dev, mat, _torch_toy)
-    v1_before = dict(v1_launches)
 
     t0 = time.time()
     ref, chrom = build_genome(args.seed, args.genome_bp)
@@ -886,17 +823,19 @@ def main() -> int:
 
     spy = Spy()
     base = ["-t", "1", "-o", "out", ref]
-    # phase 4: the main path, extension DP in the kernel
+    # phase 4: the main path, extension DP and backward passes in kernels
     pe = run_cli(os.path.join(work, "pe_device"),
                  base + [paths["r1"], paths["r2"]], spy, "device")
     n_pe = 2 * args.pairs
     mapped = check_sam(pe["sam"], n_pe)
-    launches = {"extend": pe["launches"]["extend"]}
+    launches = {k: pe["launches"][k] for k in ("extend", "bwd_pass")}
     report_run("phase 4 PE device", pe, n_pe)
     log(f"phase 4 mapped share {mapped:.4f}")
-    report_sizes("phase 4", pe, "extend")
-    if launches["extend"] <= 0:
-        raise Failed("the main path launched no extension kernel")
+    for k in ("extend", "bwd_pass"):
+        report_sizes("phase 4", pe, k)
+        if launches[k] <= 0:
+            raise Failed(f"the main path launched no {k} kernel")
+    log(f"phase 4 backward: {backward_stages(pe, n_pe)}")
     captured = list(spy.captured)
 
     # phase 5: every DP scalar in C
@@ -925,8 +864,9 @@ def main() -> int:
                  "device")
     check_sam(se["sam"], args.pairs)
     report_run("phase 7 SE device", se, args.pairs)
-    if se["launches"]["extend"] <= 0:
-        raise Failed("the SE main path launched no extension kernel")
+    for k in ("extend", "bwd_pass"):
+        if se["launches"][k] <= 0:
+            raise Failed(f"the SE main path launched no {k} kernel")
     hargv = base + [paths["h1"]]
     port = run_cli(os.path.join(work, "se_host_port"), hargv, spy, "device")
     t0 = time.time()
@@ -938,19 +878,33 @@ def main() -> int:
     if not same:
         raise Failed("port and host spec engine SAM differ (SE)")
 
-    # phases 8, 9: the main path through the block-layout kernels
+    # phase 8: the flat backward engine, its rounds through kernel 3
     pe_argv = base + [paths["r1"], paths["r2"]]
-    r8 = knob_run("phase 8 PE MPIBWA_PALLAS=1", os.path.join(work, "pe_occ4"),
-                  pe_argv, spy, {"MPIBWA_PALLAS": "1"}, "occ4_extend",
-                  pe["sam"], n_pe)
+    knobs8 = {"MPIBWA_BWD": "flat", "MPIBWA_PALLAS": "1"}
+    r8 = knob_run("phase 8 PE MPIBWA_BWD=flat MPIBWA_PALLAS=1",
+                  os.path.join(work, "pe_occ4"), pe_argv, spy, knobs8,
+                  ["occ4_extend"], pe["sam"], n_pe, absent=["bwd_pass"])
     launches["occ4_extend"] = r8["launches"]["occ4_extend"]
     report_sizes("phase 8", r8, "occ4_extend")
-    r9 = knob_run("phase 9 PE MPIBWA_BWD=pallas", os.path.join(work, "pe_bwd"),
-                  pe_argv, spy, {"MPIBWA_BWD": "pallas"}, "bwd_round",
-                  pe["sam"], n_pe)
-    launches["bwd_round"] = r9["launches"]["bwd_round"]
-    report_sizes("phase 9", r9, "bwd_round")
-    # phase 10: the runs of phases 4, 8 and 9 again on the first pairs,
+    # phase 9: flat against the default, in turns after phase 8
+    r9f = knob_run("phase 9 PE MPIBWA_BWD=flat", os.path.join(work, "pe_flat"),
+                   pe_argv, spy, {"MPIBWA_BWD": "flat"}, ["extend"],
+                   pe["sam"], n_pe, absent=["bwd_pass"])
+    r9d = knob_run("phase 9 PE default", os.path.join(work, "pe_default"),
+                   pe_argv, spy, {}, ["extend", "bwd_pass"], pe["sam"], n_pe)
+    report_sizes("phase 9 default", r9d, "bwd_pass")
+    rate = {k: n_pe / r["align"] for k, r in
+            (("phase 4", pe), ("flat", r9f), ("default", r9d))}
+    log(f"phase 9 turns: phase 4 default {backward_stages(pe, n_pe)}; "
+        f"MPIBWA_BWD=flat {backward_stages(r9f, n_pe)}; default again "
+        f"{backward_stages(r9d, n_pe)}")
+    slower = rate["default"] < rate["flat"] and rate["phase 4"] < rate["flat"]
+    log(f"phase 9 the default (pass kernel) is "
+        f"{'slower' if slower else 'not slower'} than MPIBWA_BWD=flat "
+        f"against both of its neighbours: {rate['phase 4']:.1f} / "
+        f"{rate['flat']:.1f} / {rate['default']:.1f} PE reads/s (phase 4, "
+        f"flat, default)")
+    # phase 10: the default run and phase 8's again on the first pairs,
     # traced; every traced SAM equals the first one (and phase 4's when
     # the input is the whole of it)
     n_tr = min(args.traced_pairs, args.pairs)
@@ -963,56 +917,48 @@ def main() -> int:
         t_argv = base + [paths["t1"], paths["t2"]]
     log(f"phase 10 traced runs on the first {n_tr} pairs")
     traced = {}
-    for k, ph, d, kn in (
-            ("extend", "phase 4", "pe_device_traced", {}),
-            ("occ4_extend", "phase 8", "pe_occ4_traced",
-             {"MPIBWA_PALLAS": "1"}),
-            ("bwd_round", "phase 9", "pe_bwd_traced",
-             {"MPIBWA_BWD": "pallas"})):
-        traced[k] = profiled_run(f"phase 10 ({ph})", os.path.join(work, d),
-                                 t_argv, spy, kn, k, base_sam)
-        base_sam = traced[k].pop("sam")
-    if v1_launches != v1_before:
-        raise Failed("the main path launched a first-version kernel")
-    log(f"phases 4-9 launched no first-version kernel: {v1_launches} "
-        f"launches, all from phase 2")
-    fm = spy.runtimes[-1].aligners[0].dfm  # phase 9's index, on the card
+    for kernels, ph, d, kn in (
+            (["extend", "bwd_pass"], "default", "pe_device_traced", {}),
+            (["occ4_extend"], "phase 8", "pe_occ4_traced", knobs8)):
+        got = profiled_run(f"phase 10 ({ph})", os.path.join(work, d),
+                           t_argv, spy, kn, kernels, base_sam)
+        base_sam = got.pop("sam")
+        traced.update(got)
+    fm = spy.runtimes[-1].aligners[0].dfm  # phase 8's index, on the card
     spy.close()
     if spy.occ4_ik is None or spy.bwd_call is None:
         raise Failed("no occ4 batch or backward call captured from the main "
                      "path")
 
-    # phase 2b: kernel 1 and its first version on the problems of the
-    # main path
+    # phase 2b: kernel 1 on the problems of the main path
     from mpibwa_tpu_torch.ops.extend_batch import extend_batch
 
     if not captured:
         raise Failed("no extension problems captured from the main path")
     ext = {}
     for i, args in enumerate(captured):
-        err, err1 = extend_errs(args, PEN)
-        worst = max(worst, err, err1)
-        old, new, t = extend_turns(args, PEN, 7)
+        err = extend_err(args, PEN)
+        worst = max(worst, err)
+        ms = extend_ms(args, PEN, 7)
         B, Q, T = args[0].shape[0], args[0].shape[1], args[1].shape[1]
         line = (f"phase 2b captured call B={B} Q={Q} T={T}: max_abs_err="
-                f"{err} (first version {err1}); kernel {new:.4f} ms, first "
-                f"version {old:.4f} ms (turns v1/new/new/v1 {fmt_turns(t)}, "
-                f"medians of 7 after a warm-up, CUDA events)")
+                f"{err}; kernel {ms:.4f} ms (median of 7 after a warm-up, "
+                f"CUDA events)")
         if i == 0:
             plain_ms = median_ms(lambda: extend_batch(*args, *PEN), 7)
             b_ms, b_by, cells = extend_bound(args)
             line += (f"; plain {plain_ms:.4f} ms; {cells} DP cells visited, "
                      f"bound {b_ms:.5f} ms by {b_by}")
-            ext = {"ms": new, "ms_v1": old, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by}
+            ext = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by}
         log(line)
     if worst:
-        raise Failed("kernel 1 or its first version disagrees with the "
-                     "plain version")
+        raise Failed("kernel 1 disagrees with the plain version")
 
     results = {"extend": dict(ext, max_abs_err=worst),
                "occ4_extend": phase2c(rng, fm, spy.occ4_ik, _torch_toy),
-               "bwd_round": phase2d(fm, spy.bwd_call)}
+               "bwd_pass": phase2d(fm, spy.bwd_call, _torch_toy,
+                                   int(rng.integers(1 << 30)))}
 
     log(f"total {time.time() - t_start:.1f}s")
     # no single PyTorch call computes any of the three functions

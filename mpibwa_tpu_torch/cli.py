@@ -11,9 +11,11 @@ PyTorch version). MPIBWA_EXT=device runs the extension DP in the CUDA
 kernel; native (the default) leaves it to the C runtime. MPIBWA_DEVICES,
 MPIBWA_WORKERS, MPIBWA_SHARD/MPIBWA_NSHARDS and MPIBWA_MICROBATCH mean
 what they mean for mpibwa_tpu.cli. MPIBWA_PALLAS=1 serves the FM
-extension through the fused occ4 CUDA kernel (ops/occ4_cuda.py) and
-MPIBWA_BWD=pallas runs the backward SMEM pass as fused rounds in the
-CUDA kernel of ops/bwd_cuda.py; both are opt-in, as in mpibwa_tpu. The
+extension through the fused occ4 CUDA kernel (ops/occ4_cuda.py), opt-in
+as in mpibwa_tpu. On a CUDA device with the int32 position path each
+backward SMEM pass runs as one launch of the CUDA kernel of
+ops/bwd_cuda.py (MPIBWA_BWD=auto); MPIBWA_BWD=flat keeps the flat engine
+there. The
 package shares nothing with mpibwa_tpu by import: the option parser and
 the ``index``, ``idx``, ``merge`` and ``mergebychr`` commands are its own
 copies. ``launch`` is not ported yet (ROADMAP.md).

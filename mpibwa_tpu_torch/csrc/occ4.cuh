@@ -1,5 +1,5 @@
 // Shared device functions of the block-layout FM kernels (occ4_extend.cu,
-// bwd_round.cu): bwt_occ4 over one fused 128-bp block row and the
+// bwd_pass.cu): bwt_occ4 over one fused 128-bp block row and the
 // bwt_extend interval arithmetic (bwt.c:98-105, 165-186, 262-275).
 //
 // The fused table has one 48-byte row per 128 bases of the BWT:

@@ -1,11 +1,12 @@
-"""Fused backward-SMEM rounds: the CUDA kernel (csrc/bwd_round.cu), its
-wrapper, its plain PyTorch round and the loop over a whole backward pass.
+"""Backward-SMEM passes in one launch: the CUDA kernel (csrc/bwd_pass.cu),
+its wrapper, its plain PyTorch pass and the function that runs a pass.
 
 The kernel replaces the TPU kernel mpibwa_tpu/ops/pallas_bwd.py
 ``_round_call`` (one round of bwt.c:326-345 over every lane) together with
-the block gather and query lookup that ``backward_full`` does ahead of it
-(see the note at the top of the source for its bound and design).
-``DeviceSeeder`` reaches it under MPIBWA_BWD=pallas.
+the device while_loop of ``backward_full`` that runs it round after round
+and the gathers it does ahead of every round (see the note at the top of
+the source for its bound and design). ``DeviceSeeder`` reaches it under
+MPIBWA_BWD=auto on a CUDA int32 index, and under MPIBWA_BWD=pallas.
 
 The state of a backward pass is one (7, E) int32 tensor over the E entries
 of all lanes, flat and lane-contiguous, longest match first, at its real
@@ -15,11 +16,12 @@ mem's start is I + 1), ``LAST`` (start of the lane's last mem, BIG before
 the first) and ``EMITTED`` (the entry is a mem). ``BwdLanes`` holds what
 does not change over the rounds.
 
-``bwd_round_kernel(fm, lanes, state)`` runs one round in place and returns
-the state. On a CUDA tensor it launches the kernel or raises; on a CPU
-tensor it runs the plain version ``bwd_round``. It counts its launches in
-``bwd_round_kernel.launches``. ``run_backward_fused`` drives rounds until no
-entry is live and returns per-lane mem lists.
+``bwd_round`` is the plain version of one round and ``bwd_pass`` of a whole
+pass. ``bwd_pass_kernel(fm, lanes, state)`` runs a pass in place and
+returns the state. On a CUDA tensor it launches the kernel once or raises;
+on a CPU tensor it runs ``bwd_pass``. It counts its launches in
+``bwd_pass_kernel.launches``. ``run_backward_fused`` drives one pass and
+returns per-lane mem lists.
 """
 
 from __future__ import annotations
@@ -39,9 +41,9 @@ from mpibwa_tpu_torch.ops.seeding_flat import (_seg_excl_cumsum,
 
 IK0, IK1, IK2, LIVE, I, LAST, EMITTED = range(7)
 BIG = 1 << 30  # LAST before a lane's first mem
-# a round over a state with no live entry changes nothing, so the host
-# looks for live entries once per this many rounds
-ROUNDS_PER_SYNC = 8
+# the kernel's register instances: entries a lane holds in registers, in
+# slots of 32 (a longer lane is walked in chunks from device memory)
+SLOTS = (1, 2, 4, 8)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,16 +55,28 @@ class BwdLanes(NamedTuple):
     lane_off: torch.Tensor  # (NL + 1,) int32 entry offsets, last = E
     minv: torch.Tensor  # (NL,) int32 min_intv of each lane
     lane_e: torch.Tensor  # (E,) int64 lane of each entry
+    max_len: int  # entries of the longest lane (picks the slot count)
 
 
 def make_lanes(qrows: torch.Tensor, lane_off: torch.Tensor,
-               minv: torch.Tensor, E: int) -> BwdLanes:
+               minv: torch.Tensor, E: int,
+               max_len: "int | None" = None) -> BwdLanes:
     """lane_e from the offsets (lane_off[-1] == E): the lane of entry e is
-    the first lane that ends past e (zero-length lanes own no entry)."""
+    the first lane that ends past e (zero-length lanes own no entry).
+    max_len, when not given, is read from lane_off."""
     e_idx = torch.arange(E, device=lane_off.device, dtype=lane_off.dtype)
     lane_e = torch.searchsorted(lane_off[1:].contiguous(), e_idx, right=True)
+    if max_len is None:
+        max_len = int((lane_off[1:] - lane_off[:-1]).max()) \
+            if lane_off.numel() > 1 else 0
     return BwdLanes(qrows.contiguous(), lane_off.contiguous(),
-                    minv.contiguous(), lane_e)
+                    minv.contiguous(), lane_e, int(max_len))
+
+
+def slot_count(max_len: int) -> int:
+    """The kernel instance for a launch: the fewest slots of 32 entries
+    that hold the longest lane, at most SLOTS[-1]."""
+    return next((s for s in SLOTS if 32 * s >= max_len), SLOTS[-1])
 
 
 def init_state(ik: torch.Tensor, live: torch.Tensor, x0: torch.Tensor,
@@ -120,19 +134,37 @@ def bwd_round(fm, lanes: BwdLanes, state: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def bwd_pass(fm, lanes: BwdLanes, state: torch.Tensor,
+             rounds: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Plain version of a whole pass: ``bwd_round`` until no entry is live,
+    at most L + 2 rounds (every live entry dies or moves one base down the
+    read each round). Returns the new state; rounds, a (1,) int32 tensor
+    when given, becomes the larger of its value and the rounds run."""
+    L = lanes.qrows.shape[1]
+    r = 0
+    while r < L + 2 and bool(state[LIVE].any()):
+        state = bwd_round(fm, lanes, state)
+        r += 1
+    if rounds is not None:
+        rounds.clamp_(min=r)
+    return state
+
+
 # the kernel's C entry point: (kernel, symbol, argument types)
-ENTRY = ("bwd_round", "mpibwa_bwd_round",
-         [_P] + [_I] * 6 + [_P, _I, _P, _P, _I, _P, _I, _P])
+ENTRY = ("bwd_pass", "mpibwa_bwd_pass",
+         [_P] + [_I] * 6 + [_P, _I, _P, _P, _I, _I, _P, _I, _P, _P])
 
 
-def _check(fm, lanes: BwdLanes, state: torch.Tensor):
+def _check(fm, lanes: BwdLanes, state: torch.Tensor, rounds):
     dev = state.device
     if fm.idt != torch.int32:
-        raise TypeError("the backward round kernel needs the int32 position "
+        raise TypeError("the backward pass kernel needs the int32 position "
                         "path")
     want = (("state", state, torch.int32), ("qrows", lanes.qrows, torch.uint8),
             ("lane_off", lanes.lane_off, torch.int32),
             ("minv", lanes.minv, torch.int32))
+    if rounds is not None:
+        want += (("rounds", rounds, torch.int32),)
     for name, t, dt in want:
         if t.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
@@ -143,20 +175,23 @@ def _check(fm, lanes: BwdLanes, state: torch.Tensor):
     NL = lanes.qrows.shape[0]
     if (state.dim() != 2 or state.shape[0] != 7 or lanes.qrows.dim() != 2
             or lanes.lane_off.shape != (NL + 1,)
-            or lanes.minv.shape != (NL,)):
+            or lanes.minv.shape != (NL,)
+            or (rounds is not None and rounds.shape != (1,))):
         raise ValueError("state must be (7, E), qrows (NL, L), lane_off "
-                         "(NL + 1,), minv (NL,)")
+                         "(NL + 1,), minv (NL,), rounds (1,)")
 
 
-def bwd_round_kernel(fm, lanes: BwdLanes, state: torch.Tensor
-                     ) -> torch.Tensor:
-    """One backward round over every lane, in place; returns state."""
-    _check(fm, lanes, state)
+def bwd_pass_kernel(fm, lanes: BwdLanes, state: torch.Tensor,
+                    rounds: "torch.Tensor | None" = None) -> torch.Tensor:
+    """A whole backward pass over every lane, in place; returns state.
+    rounds, a (1,) int32 tensor when given, becomes the larger of its value
+    and the pass's round count (the most rounds any lane ran)."""
+    _check(fm, lanes, state, rounds)
     if state.device.type == "cpu":
-        state.copy_(bwd_round(fm, lanes, state))
+        state.copy_(bwd_pass(fm, lanes, state, rounds))
         return state
     if state.device.type != "cuda":
-        raise ValueError(f"no backward round kernel for device "
+        raise ValueError(f"no backward pass kernel for device "
                          f"{state.device}")
     fdev, fargs = fm.fused_args()
     if fdev != state.device:
@@ -167,19 +202,21 @@ def bwd_round_kernel(fm, lanes: BwdLanes, state: torch.Tensor
         return state
     rc = _build.launch_on(state.device, _build.entry(*ENTRY), *fargs,
                           lanes.qrows.data_ptr(), L, lanes.lane_off.data_ptr(),
-                          lanes.minv.data_ptr(), NL, state.data_ptr(), E)
+                          lanes.minv.data_ptr(), NL, slot_count(lanes.max_len),
+                          state.data_ptr(), E,
+                          None if rounds is None else rounds.data_ptr())
     if rc != 0:
-        raise RuntimeError(f"backward round kernel launch failed "
+        raise RuntimeError(f"backward pass kernel launch failed "
                            f"(cudaError {rc})")
     with _count_lock:
         _WRAPPER.launches += 1
     return state
 
 
-bwd_round_kernel.launches = 0
+bwd_pass_kernel.launches = 0
 # the count stays on this function object even where a caller rebinds the
 # module attribute (e.g. to wrap it)
-_WRAPPER = bwd_round_kernel
+_WRAPPER = bwd_pass_kernel
 
 
 def pack_emitted(state: torch.Tensor, info_end: torch.Tensor,
@@ -205,8 +242,10 @@ def entry_state(qrows_dev, entry_dev, x0_np, minv_np, lane_off_np
         return torch.from_numpy(
             np.ascontiguousarray(np.asarray(a).astype(dt))).to(dev)
 
+    lane_off_np = np.asarray(lane_off_np)
+    max_len = int(np.diff(lane_off_np).max()) if len(lane_off_np) > 1 else 0
     lanes = make_lanes(qrows_dev, up(lane_off_np, np.int32),
-                       up(minv_np, np.int32), int(ik.shape[0]))
+                       up(minv_np, np.int32), int(ik.shape[0]), max_len)
     return lanes, init_state(ik.to(torch.int32), live, up(x0_np, np.int32),
                              lanes.lane_e)
 
@@ -214,40 +253,38 @@ def entry_state(qrows_dev, entry_dev, x0_np, minv_np, lane_off_np
 def run_backward_fused(fm, qrows_dev, entry_dev, n_lanes: int, x0_np,
                        minv_np, lane_off_np, interpret: bool = False,
                        stats: "dict | None" = None):
-    """A whole backward pass as fused rounds, with the contract of
+    """A whole backward pass in one launch, with the contract of
     seeding_flat.run_backward_flat.
 
     qrows_dev: (NL, L) uint8 read rows; entry_dev: (ik (E, 3) int32, info
     (E,), lane (E,), live (E,) bool) from assemble_entries at the real entry
     count E; x0_np/minv_np: (NL,) numpy; lane_off_np: (NL + 1,) entry
-    offsets. interpret=True runs every round through the plain version
-    ``bwd_round`` on whatever device the tensors lie on. stats, when given,
-    accumulates "bwd_rounds" and "bwd_segments" (host round trips).
+    offsets. interpret=True runs the plain version ``bwd_pass`` on whatever
+    device the tensors lie on. stats, when given, accumulates "bwd_rounds"
+    (the pass's round count) and "bwd_segments" (host round trips: one, the
+    read of the mems). Nothing crosses to the host before that read.
     Returns (per-lane mem lists [(x0, x1, x2, info)], overflow (NL,) bool,
     all false: a mem lives in its entry's own slot, so no buffer fills)."""
-    L = int(qrows_dev.shape[1])
     out_mems = [[] for _ in range(n_lanes)]
     overflow = np.zeros(n_lanes, bool)
     if entry_dev[0].shape[0] == 0:
         return out_mems, overflow
     lanes, state = entry_state(qrows_dev, entry_dev, x0_np, minv_np,
                                lane_off_np)
-    rounds = syncs = 0
-    # every live entry dies or moves one base down the read each round
-    while rounds < L + 2:
-        for _ in range(min(ROUNDS_PER_SYNC, L + 2 - rounds)):
-            if interpret:
-                state = bwd_round(fm, lanes, state)
-            else:
-                state = bwd_round_kernel(fm, lanes, state)
-            rounds += 1
-        syncs += 1
-        if not bool(state[LIVE].any()):  # one scalar crosses to the host
-            break
-    if stats is not None:
-        stats["bwd_rounds"] = stats.get("bwd_rounds", 0) + rounds
-        stats["bwd_segments"] = stats.get("bwd_segments", 0) + syncs
+    rounds = torch.zeros(1, dtype=torch.int32, device=state.device)
+    if interpret:
+        state = bwd_pass(fm, lanes, state, rounds)
+    else:
+        state = bwd_pass_kernel(fm, lanes, state, rounds)
+    rounds_host = rounds
+    if stats is not None and rounds.device.type == "cuda":
+        # lands before the read of the mems completes, in stream order
+        rounds_host = torch.empty(1, dtype=torch.int32, pin_memory=True)
+        rounds_host.copy_(rounds, non_blocking=True)
     rows = pack_emitted(state, entry_dev[1], lanes.lane_e)
+    if stats is not None:
+        stats["bwd_rounds"] = stats.get("bwd_rounds", 0) + int(rounds_host[0])
+        stats["bwd_segments"] = stats.get("bwd_segments", 0) + 1
     for x0, x1, x2, start, end, ln in rows.tolist():
         out_mems[ln].append((x0, x1, x2, (start << 32) | end))
     return out_mems, overflow

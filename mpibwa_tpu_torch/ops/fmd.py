@@ -6,7 +6,7 @@ packed_word] per 16-base sub-block and base. Beside it live the L2
 totals, the sampled SA and the packed forward reference. The classic
 128-bp blocks (4 cumulative counts + 8 words of 16 packed bases) stay on
 the host and are uploaded as one fused (n_blocks, 12) int32 table only when
-an engine asks for them (fused_blocks(): MPIBWA_PALLAS=1, MPIBWA_BWD=pallas).
+an engine asks for them (fused_blocks(): MPIBWA_PALLAS=1, the pass kernel).
 
 Positions are int32 when the doubled genome fits (seq_len + 2 < 2**31)
 and int64 otherwise, or with ``force_wide``; counts and gather indices

@@ -6,13 +6,14 @@ automata (ops/seeding.py) and the flat backward engine
 interval list that core.chain.collect_intv produces. Reads that overflow a
 device buffer fall back to the scalar host engine.
 
-Backward engines: MPIBWA_BWD=auto or flat select the exact "flat" engine
-on every device; pallas runs the pass as fused rounds (ops/bwd_cuda.py: the
-CUDA round kernel on a CUDA device, its plain round on the CPU) and
-pallas_interp runs the same loop over the plain round on any device.
-v8 and contig raise NotImplementedError (ROADMAP.md, queue 1), so the
-v8-only sync-free pass-2 route is not here either; pass 2 takes the
-synchronous route.
+Backward engines: MPIBWA_BWD=auto runs each pass as one launch of the
+CUDA pass kernel (ops/bwd_cuda.py) on a CUDA device with the int32
+position path, and the exact "flat" engine elsewhere (the CPU, the int64
+path), as the JAX package keeps flat for the CPU. flat forces the flat
+engine; pallas takes the pass kernel on any int32 index (its plain pass on
+the CPU) and pallas_interp the plain pass on any device. v8 and contig
+raise NotImplementedError (ROADMAP.md, queue 1), so the v8-only sync-free
+pass-2 route is not here either; pass 2 takes the synchronous route.
 """
 
 from __future__ import annotations
@@ -44,9 +45,13 @@ def _pad_batch(qs: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
     return out, lens
 
 
-def _backward_engine() -> str:
+def _backward_engine(fm) -> str:
+    """The backward engine for index fm (its ``device`` and ``idt``)."""
     mode = os.environ.get("MPIBWA_BWD", "auto")
-    if mode in ("auto", "flat"):
+    if mode == "auto":
+        return ("pallas" if fm.device.type == "cuda"
+                and fm.idt == torch.int32 else "flat")
+    if mode == "flat":
         return "flat"
     if mode in ("pallas", "pallas_interp"):
         return mode
@@ -179,7 +184,7 @@ class DeviceSeeder:
         N = len(call_list)
         if N == 0:
             return []
-        engine = _backward_engine()
+        engine = _backward_engine(self.dfm)
         arr = np.asarray(call_list, dtype=np.int64)  # (n, 5)
         if engine != "flat":
             return self._run_backward_fused(qd, arr, ivals_dev, infos_dev,

@@ -315,3 +315,165 @@ def occ4_edge_intervals(fm, seed: int) -> "dict[str, np.ndarray]":
     out["last_position"] = pair([n_pos - 1, n_pos - 1, n_pos - 2, n_pos - 3],
                                 [1, 0, 2, 3])
     return {k: v.astype(np.int32) for k, v in out.items()}
+
+
+# -- edge lanes of the backward pass ------------------------------------------
+
+def ref_reads(fm, rng, n: int, length: int,
+              sub_rate: float = 0.01) -> np.ndarray:
+    """(n, length) uint8 base codes read off fm's doubled reference (either
+    strand, through ``fm.ref_base``) at positions from rng, with
+    substitutions at sub_rate."""
+    import torch
+
+    pos = rng.integers(0, 2 * fm.l_pac - length, n)
+    idx = torch.from_numpy(pos[:, None] + np.arange(length)).to(fm.device)
+    q = fm.ref_base(idx.reshape(-1)).cpu().numpy().astype(np.uint8)
+    q = q.reshape(n, length)
+    hit = rng.random(q.shape) < sub_rate
+    q[hit] = (q[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+    return q
+
+
+def forward_lanes(fm, q: np.ndarray, starts=None) -> "list[dict]":
+    """The backward lanes of a forward run of the port over reads q (B, L)
+    uint8 (4 pads): one per call, each a dict of q (the read's row), x0
+    (the call's start), minv 1 and its entries longest match first, ik
+    (n, 3) int32, info (n,) int64 and live (n,) bool (all true). Chained
+    calls from 0 as in pass 1, or one call from each of starts (B,). Reads
+    whose forward buffers overflow are left out."""
+    import torch
+
+    from mpibwa_tpu_torch.ops import seeding as TS
+
+    B, L = q.shape
+    lens = (q < 4).sum(axis=1).astype(np.int32)
+    fwd = TS.forward_pass(
+        fm, torch.from_numpy(q).to(fm.device),
+        torch.from_numpy(lens).to(fm.device),
+        torch.ones(B, dtype=torch.int64, device=fm.device),
+        chain=starts is None,
+        starts=None if starts is None else torch.from_numpy(
+            np.asarray(starts, np.int32)).to(fm.device))
+    ivals = fwd.ivals.cpu().numpy()
+    infos = fwd.infos.cpu().numpy()
+    cx, cs, cl, nc, ov = (t.cpu().numpy() for t in (
+        fwd.call_x, fwd.call_start, fwd.call_len, fwd.n_calls,
+        fwd.overflow))
+    out = []
+    for b in range(B):
+        if ov[b]:
+            continue
+        for c in range(int(nc[b])):
+            idx = cs[b, c] + cl[b, c] - 1 - np.arange(cl[b, c])
+            out.append({"q": q[b], "x0": int(cx[b, c]), "minv": 1,
+                        "ik": ivals[b, idx].astype(np.int32),
+                        "info": infos[b, idx].astype(np.int64),
+                        "live": np.ones(len(idx), bool)})
+    return out
+
+
+BWD_LONG_READ = 320  # bp of the read behind the longest edge lanes
+
+
+def bwd_edge_lanes(fm, seed: int) -> "list[dict]":
+    """Lanes of a backward pass that corner a warp-per-lane kernel, each a
+    dict like forward_lanes' with a ``name``: real lanes of reads off fm's
+    reference; zero-length and one-entry lanes; lanes of exactly 32, 33,
+    64, 65 and 160 entries; lanes of 300 entries (longer than 8 slots of
+    32) from a read of BWD_LONG_READ bp that matches the reference, whose
+    calls start deep in the read so that their entries live for hundreds
+    of rounds, one with its first 40 entries dead; a lane whose entries
+    all start dead; a query with N at the next position; lanes that start
+    at i = 0 and i = -1; min_intv > 1; dedup chains of equal sizes across
+    the slot boundary; intervals that span ``primary``; and random live
+    masks. Longer lanes repeat a real lane's entries (each copy behaves as
+    the lane itself). Everything derives from numpy's generator at
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    real = forward_lanes(fm, ref_reads(fm, rng, 12, READ_LEN))
+    real.sort(key=lambda ln: -len(ln["ik"]))
+    long_q = np.repeat(ref_reads(fm, rng, 1, BWD_LONG_READ, sub_rate=0.0),
+                       3, axis=0)
+    long_real = forward_lanes(fm, long_q, starts=[60, 150, 280])
+    base, lbase = real[0], long_real[-1]
+    out = []
+
+    def add(name, lane, **kw):
+        out.append(dict(lane, name=name, **kw))
+
+    def take(lane, idx, **kw):
+        idx = np.asarray(idx, np.int64)
+        d = {k: lane[k][idx] for k in ("ik", "info", "live")}
+        return dict(lane, **d, **kw)
+
+    def tiled(lane, m):
+        return take(lane, np.arange(m) % len(lane["ik"]))
+
+    add("zero_length", take(base, []))
+    for j, ln in enumerate(real[:8]):
+        add(f"real_{j}", ln)
+    add("one_entry", take(base, [0]))
+    add("zero_length", take(base, []), x0=3)
+    for m in (32, 33, 64, 65, 160):
+        add(f"len_{m}", tiled(base, m))
+    for ln in long_real:
+        add(f"real_{BWD_LONG_READ}bp_from_{ln['x0']}", ln)
+    add(f"len_300_{BWD_LONG_READ}bp", tiled(lbase, 300))
+    head_dead = tiled(lbase, 300)
+    head_dead["live"] = head_dead["live"].copy()
+    head_dead["live"][:40] = False
+    add(f"len_300_{BWD_LONG_READ}bp_head_dead", head_dead)
+    add("all_dead", base, live=np.zeros(len(base["ik"]), bool))
+    qn = base["q"].copy()
+    qn[base["x0"] - 1] = 4
+    add("n_at_next_position", base, q=qn)
+    add("starts_at_i_0", base, x0=1)
+    add("starts_at_i_minus_1", base, x0=0)
+    for mv in (2, 3, 5):
+        add(f"min_intv_{mv}", real[1 + mv % 3], minv=mv)
+    # each entry three times over: a keeper's copies have its size, and the
+    # chain of entry 10 (entries 30-32) crosses the slot boundary
+    add("dedup_chains", take(base, np.repeat(np.arange(len(base["ik"])),
+                                             3)))
+    prim = occ4_edge_intervals(fm, int(rng.integers(1 << 30)))
+    prim = prim["around_primary"]
+    n = len(prim)
+    add("spans_primary", base, ik=prim,
+        info=np.resize(base["info"], n), live=np.ones(n, bool))
+    rl = tiled(base, 70)
+    rl["live"] = rng.random(70) < 0.7
+    add("random_live", rl, minv=2)
+    return out
+
+
+def pack_bwd_lanes(lanes, multiple: int = 1) -> dict:
+    """Flat arrays of a backward pass over lanes (as bwd_edge_lanes gives
+    them), in the form of the seeder's tables: q (NL, L) uint8, x0 and
+    minv (NL,) int32, lane_off (NL + 1,) int32, ik (E, 3) int32, info (E,)
+    int64, lane (E,) int32, live (E,) bool, E, NL and names. A pad lane of
+    dead entries takes E to a multiple of ``multiple`` where needed."""
+    lanes = list(lanes)
+    E = sum(len(ln["ik"]) for ln in lanes)
+    if E % multiple:
+        k = multiple - E % multiple
+        src = next(ln for ln in lanes if len(ln["ik"]))
+        lanes.append(dict(src, name="pad", minv=1,
+                          ik=np.resize(src["ik"], (k, 3)),
+                          info=np.resize(src["info"], k),
+                          live=np.zeros(k, bool)))
+    n = np.array([len(ln["ik"]) for ln in lanes])
+    L = max(len(ln["q"]) for ln in lanes)
+    q = np.full((len(lanes), L), 4, np.uint8)
+    for j, ln in enumerate(lanes):
+        q[j, : len(ln["q"])] = ln["q"]
+    cat = [np.concatenate([ln[k] for ln in lanes]) for k in
+           ("ik", "info", "live")]
+    return {"q": q, "x0": np.array([ln["x0"] for ln in lanes], np.int32),
+            "minv": np.array([ln["minv"] for ln in lanes], np.int32),
+            "lane_off": np.concatenate([[0], np.cumsum(n)]).astype(np.int32),
+            "ik": cat[0].reshape(-1, 3).astype(np.int32),
+            "info": cat[1].astype(np.int64), "live": cat[2].astype(bool),
+            "lane": np.repeat(np.arange(len(lanes)), n).astype(np.int32),
+            "E": int(n.sum()), "NL": len(lanes),
+            "names": [ln["name"] for ln in lanes]}

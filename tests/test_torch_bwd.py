@@ -1,11 +1,17 @@
-"""The port's fused backward rounds (mpibwa_tpu_torch/ops/bwd_cuda.py) vs
-the JAX package on reads simulated from the toy genome: the plain round
+"""The port's backward pass in one launch (mpibwa_tpu_torch/ops/bwd_cuda.py)
+vs the JAX package on reads simulated from the toy genome: the plain round
 ``bwd_round`` against the Pallas kernel ``pallas_bwd._round_call`` in
-interpret mode, round by round; seeds under MPIBWA_BWD=pallas against
+interpret mode, round by round; the plain pass ``bwd_pass`` against
+``pallas_bwd.run_backward_pallas`` in interpret mode on the toy entries and
+on the edge lanes of ``tests/_torch_toy.bwd_edge_lanes``; a numpy model of
+the kernel's warp (csrc/bwd_pass.cu) against ``bwd_pass`` on every edge
+lane at every slot count; seeds under MPIBWA_BWD=pallas against
 mpibwa_tpu's pallas_interp, the port's flat engine and the scalar engine;
-and `cli mem` under the knob. Integers throughout: every comparison is
-exact (tolerance 0). The CUDA kernel itself runs only on a card (the test
-marked ``gpu``)."""
+the engine MPIBWA_BWD=auto picks; and `cli mem` under each engine.
+Integers throughout: every comparison is exact (tolerance 0). The CUDA
+kernel itself runs only on a card (the test marked ``gpu``)."""
+
+import types
 
 import numpy as np
 import pytest
@@ -84,6 +90,31 @@ def entry(fms, reads):
             "E": E, "NL": len(arr)}
 
 
+@pytest.fixture(scope="module")
+def edge(fms):
+    """The edge lanes of the backward pass over the toy index, packed: all
+    of them ("all"), and those of 101-bp reads with a pad lane that takes
+    the entry count to a multiple of 8 ("short", for the Pallas layout)."""
+    _, tfm = fms
+    lanes = toy.bwd_edge_lanes(tfm, 11)
+    return {"lanes": lanes, "all": toy.pack_bwd_lanes(lanes),
+            "short": toy.pack_bwd_lanes(
+                [ln for ln in lanes if len(ln["q"]) == toy.READ_LEN], 8)}
+
+
+@pytest.fixture(scope="module")
+def edge_pass(fms, edge):
+    """(lanes, entry state, state after ``bwd_pass``, its rounds) of all
+    edge lanes."""
+    from mpibwa_tpu_torch.ops import bwd_cuda as BC
+
+    _, tfm = fms
+    lanes, state = _port_state(edge["all"])
+    rounds = torch.zeros(1, dtype=torch.int32)
+    out = BC.bwd_pass(tfm, lanes, state, rounds)
+    return lanes, state, out, int(rounds[0])
+
+
 def _port_state(entry):
     from mpibwa_tpu_torch.ops import bwd_cuda as BC
 
@@ -96,11 +127,17 @@ def _port_state(entry):
     return lanes, state
 
 
+def _entries(entry):
+    return tuple(torch.from_numpy(entry[k].copy())
+                 for k in ("ik", "info", "lane", "live"))
+
+
 def test_lanes_and_entry_state(entry):
     from mpibwa_tpu_torch.ops import bwd_cuda as BC
 
     lanes, state = _port_state(entry)
     np.testing.assert_array_equal(lanes.lane_e.numpy(), entry["lane"])
+    assert lanes.max_len == int(np.diff(entry["lane_off"]).max())
     assert state.shape == (7, entry["E"]) and state.dtype == torch.int32
     assert int(state[BC.LAST].min()) == BC.BIG
     assert not bool(state[BC.EMITTED].any())
@@ -181,22 +218,32 @@ def test_bwd_round_equals_pallas_kernel_interpret_round_by_round(fms, entry):
 
 
 def test_round_wrapper_on_cpu_is_the_plain_round_in_place(fms, entry):
+    """The pass wrapper on CPU tensors runs the plain pass, in place: the
+    state of ``bwd_pass`` (``bwd_round`` until no entry is live), its round
+    count in ``rounds``, and no kernel launch counted."""
     from mpibwa_tpu_torch.ops import bwd_cuda as BC
 
     _, tfm = fms
     lanes, state = _port_state(entry)
     want = state
-    before = BC.bwd_round_kernel.launches
-    for _ in range(3):
+    rounds = 0
+    while bool(want[BC.LIVE].any()):
         want = BC.bwd_round(tfm, lanes, want)
-        out = BC.bwd_round_kernel(tfm, lanes, state)
-        assert out is state  # in place
-        assert torch.equal(state, want)
-    assert BC.bwd_round_kernel.launches == before  # no kernel on the CPU
-    assert int(want[BC.LIVE].sum()) < int(entry["live"].sum())
+        rounds += 1
+    before = BC.bwd_pass_kernel.launches
+    got_rounds = torch.full((1,), 2, dtype=torch.int32)
+    out = BC.bwd_pass_kernel(tfm, lanes, state, got_rounds)
+    assert out is state  # in place
+    assert torch.equal(state, want)
+    assert int(got_rounds[0]) == rounds > 5
+    assert BC.bwd_pass_kernel.launches == before  # no kernel on the CPU
+    assert int(want[BC.EMITTED].sum()) >= entry["NL"] - 1
 
 
 def test_round_without_live_entries_changes_nothing(fms, entry):
+    """A round, and a whole pass, over a state with no live entry change
+    nothing (so a warp whose lane has none may leave at once), and such a
+    pass counts no round."""
     from mpibwa_tpu_torch.ops import bwd_cuda as BC
 
     _, tfm = fms
@@ -205,6 +252,9 @@ def test_round_without_live_entries_changes_nothing(fms, entry):
         state = BC.bwd_round(tfm, lanes, state)
     assert not bool(state[BC.LIVE].any())
     assert torch.equal(BC.bwd_round(tfm, lanes, state), state)
+    rounds = torch.zeros(1, dtype=torch.int32)
+    assert torch.equal(BC.bwd_pass(tfm, lanes, state, rounds), state)
+    assert int(rounds[0]) == 0
 
 
 def test_wrapper_checks_its_arguments(fms, entry):
@@ -213,45 +263,262 @@ def test_wrapper_checks_its_arguments(fms, entry):
     _, tfm = fms
     lanes, state = _port_state(entry)
     with pytest.raises(TypeError):
-        BC.bwd_round_kernel(tfm, lanes, state.long())
+        BC.bwd_pass_kernel(tfm, lanes, state.long())
     with pytest.raises(TypeError):
-        BC.bwd_round_kernel(tfm, lanes._replace(minv=lanes.minv.long()),
-                            state)
+        BC.bwd_pass_kernel(tfm, lanes._replace(minv=lanes.minv.long()),
+                           state)
+    with pytest.raises(TypeError):
+        BC.bwd_pass_kernel(tfm, lanes, state,
+                           torch.zeros(1, dtype=torch.int64))
     with pytest.raises(ValueError):
-        BC.bwd_round_kernel(tfm, lanes, state[:6])
+        BC.bwd_pass_kernel(tfm, lanes, state[:6])
     with pytest.raises(ValueError):
-        BC.bwd_round_kernel(tfm, lanes._replace(lane_off=lanes.lane_off[:-1]),
-                            state)
+        BC.bwd_pass_kernel(tfm, lanes._replace(lane_off=lanes.lane_off[:-1]),
+                           state)
     with pytest.raises(ValueError):
-        BC.bwd_round_kernel(tfm, lanes, state.t().contiguous().t())
+        BC.bwd_pass_kernel(tfm, lanes, state.t().contiguous().t())
+    with pytest.raises(ValueError):
+        BC.bwd_pass_kernel(tfm, lanes, state,
+                           torch.zeros(2, dtype=torch.int32))
 
 
 def test_run_backward_fused_equals_flat_engine(fms, entry):
     """run_backward_fused against run_backward_flat on the same entries:
-    the same per-lane mem lists, no overflow, and round and sync counts in stats."""
+    the same per-lane mem lists, no overflow, and in stats the pass's
+    round count and one host round trip."""
     from mpibwa_tpu_torch.ops import bwd_cuda as BC
     from mpibwa_tpu_torch.ops import seeding_flat as TSF
 
     _, tfm = fms
     NL = entry["NL"]
     q = torch.from_numpy(entry["q"])
-
-    def entries():
-        return tuple(torch.from_numpy(entry[k].copy())
-                     for k in ("ik", "info", "lane", "live"))
-
-    want, _ = TSF.run_backward_flat(tfm, q, entries(), NL, entry["x0"],
+    want, _ = TSF.run_backward_flat(tfm, q, _entries(entry), NL, entry["x0"],
                                     entry["minv"].astype(np.int64))
+    lanes, state = _port_state(entry)
+    rounds = torch.zeros(1, dtype=torch.int32)
+    BC.bwd_pass(tfm, lanes, state, rounds)
     for interpret in (False, True):
         stats = {}
         got, ov = BC.run_backward_fused(
-            tfm, q, entries(), NL, entry["x0"], entry["minv"],
+            tfm, q, _entries(entry), NL, entry["x0"], entry["minv"],
             entry["lane_off"], interpret=interpret, stats=stats)
         assert got == want
         assert ov.shape == (NL,) and not ov.any()
-        assert stats["bwd_rounds"] == \
-            stats["bwd_segments"] * BC.ROUNDS_PER_SYNC
+        assert stats == {"bwd_rounds": int(rounds[0]), "bwd_segments": 1}
     assert sum(map(len, want)) >= NL - 1
+
+
+def test_edge_lanes_cover_their_cases(edge, edge_pass):
+    """The edge lanes hold what they are for: lengths 0, 1, 32, 33, 64, 65
+    and past 8 slots of 32, a lane that runs for hundreds of rounds, dead
+    entries, min_intv > 1 and intervals that span ``primary``."""
+    from mpibwa_tpu_torch.ops import bwd_cuda as BC
+
+    allp = edge["all"]
+    n = np.diff(allp["lane_off"])
+    assert {0, 1, 32, 33, 64, 65} <= set(n.tolist())
+    assert n.max() > 32 * BC.SLOTS[-1]
+    assert allp["q"].shape[1] >= toy.BWD_LONG_READ
+    assert edge_pass[3] > 200
+    assert (~allp["live"]).any() and (allp["minv"] > 1).any()
+    names = set(allp["names"])
+    assert {"all_dead", "n_at_next_position", "starts_at_i_0",
+            "dedup_chains", "spans_primary", "random_live"} <= names
+    short = edge["short"]
+    assert short["E"] % 8 == 0 and short["q"].shape[1] == toy.READ_LEN
+
+
+@pytest.mark.parametrize("which", ["toy_entries", "edge_lanes"])
+def test_bwd_pass_equals_pallas_interpret(fms, entry, edge, which):
+    """The plain pass (through run_backward_fused's interpret route) and
+    mpibwa_tpu's run_backward_pallas with the Pallas round kernel in
+    interpret mode emit the same mems, lane by lane."""
+    import jax.numpy as jnp
+
+    from mpibwa_tpu.ops import pallas_bwd as PB
+    from mpibwa_tpu_torch.ops import bwd_cuda as BC
+
+    jfm, tfm = fms
+    e = entry if which == "toy_entries" else edge["short"]
+    NL = e["NL"]
+    got, _ = BC.run_backward_fused(
+        tfm, torch.from_numpy(e["q"]), _entries(e), NL, e["x0"], e["minv"],
+        e["lane_off"], interpret=True)
+    want, _ = PB.run_backward_pallas(
+        jfm, jnp.asarray(e["q"]),
+        (jnp.asarray(e["ik"]), jnp.asarray(e["info"].astype(np.int32)),
+         jnp.asarray(e["lane"]), jnp.asarray(e["live"])),
+        NL, e["x0"], e["minv"], e["lane"].astype(np.int64), interpret=True)
+    assert got == want
+    assert sum(map(len, got)) >= 20
+
+
+# -- a numpy model of the kernel's warp (csrc/bwd_pass.cu) --------------------
+
+_LT = [(1 << t) - 1 for t in range(32)]  # lane mask of the threads below t
+
+
+def _ballot(pred) -> int:
+    return sum(1 << int(t) for t in np.flatnonzero(pred))
+
+
+def _model_extend(fm, q, L, minv, x):
+    """extend_entry of the kernel over the entries x (7, m): (ok (m, 3),
+    keeper (m,)); zeros where the entry does not extend."""
+    from mpibwa_tpu_torch.ops import bwd_cuda as BC
+    from mpibwa_tpu_torch.ops.occ4_cuda import extend_blocks
+
+    i = x[BC.I]
+    qi = np.where((i >= 0) & (i < L), q[np.clip(i, 0, L - 1)], 4)
+    ext = (x[BC.LIVE] != 0) & (i >= 0) & (qi < 4)
+    ok4 = extend_blocks(fm, torch.from_numpy(np.ascontiguousarray(
+        x[BC.IK0:BC.IK2 + 1].T)), 1).numpy()
+    ok = np.where(ext[:, None], ok4[np.arange(len(i)), np.clip(qi, 0, 3)],
+                  0).astype(np.int32)
+    return ok, ext & (ok[:, 2] >= minv)
+
+
+def _model_step(x, ok, keeper, c):
+    """step() of the kernel: one slot's carries over the 32 threads. x (7,
+    32) int32 (zeros past the lane's end) is updated in place; returns
+    whether each entry is live after the round."""
+    from mpibwa_tpu_torch.ops import bwd_cuda as BC
+
+    live = x[BC.LIVE] != 0
+    lm = _ballot(live)
+    first = np.zeros(32, bool)
+    if not c["live_above"] and lm:
+        first[(lm & -lm).bit_length() - 1] = True  # __ffs(lm) - 1
+    c["live_above"] = c["live_above"] or lm != 0
+    start = x[BC.I] + np.int32(1)  # int32 wraps
+    emit = first & ~keeper & (start < x[BC.LAST])
+    em = _ballot(emit)
+    seen = np.array([c["seen"] or em & (_LT[t] | 1 << t) != 0
+                     for t in range(32)])
+    c["seen"] = c["seen"] or em != 0
+    km = _ballot(keeper)
+    below = np.array([km & _LT[t] for t in range(32)])
+    src = [int(b).bit_length() - 1 if b else 0 for b in below]  # 31 - clz
+    prev_s = ok[src, 2]  # __shfl_sync
+    has_prev = (below != 0) | c["have_keeper"]
+    prev = np.where(below != 0, prev_s, c["keeper_s"])
+    append = keeper & (~has_prev | (ok[:, 2] != prev))
+    if km:
+        c["keeper_s"] = ok[km.bit_length() - 1, 2]
+        c["have_keeper"] = True
+    x[BC.LAST] = np.where(seen, start, x[BC.LAST])
+    x[BC.EMITTED] = np.where(emit, 1, x[BC.EMITTED])
+    x[BC.IK0:BC.IK2 + 1] = np.where(append, ok.T, x[BC.IK0:BC.IK2 + 1])
+    x[BC.I] = np.where(append, x[BC.I] - np.int32(1), x[BC.I])
+    x[BC.LIVE] = append
+    return append
+
+
+def _warp_model(fm, q, L, minv, mem, S):
+    """One warp of csrc/bwd_pass.cu over one lane: mem (7, n) int32, the
+    lane's state in device memory, updated in place; returns the rounds
+    the warp ran. A lane of at most 32 * S entries lives in S register
+    slots of 32 threads (entry j in thread j % 32, slot j / 32), loaded
+    once and stored once; a longer one is walked in chunks of 32 from
+    memory every round."""
+    from mpibwa_tpu_torch.ops import bwd_cuda as BC
+
+    n = mem.shape[1]
+
+    def load(j0):
+        x = np.zeros((7, 32), np.int32)
+        m = max(min(32, n - j0), 0)
+        x[:, :m] = mem[:, j0:j0 + m]
+        return x
+
+    def pad(ok, kp, m):
+        return (np.concatenate([ok, np.zeros((m - len(ok), 3), np.int32)]),
+                np.concatenate([kp, np.zeros(m - len(kp), bool)]))
+
+    in_regs = n <= 32 * S
+    regs = [load(32 * s) for s in range(S)] if in_regs else None
+    live = (np.concatenate(regs, 1) if in_regs else mem)[BC.LIVE] != 0
+    if not live.any():  # __any_sync: the warp leaves
+        return 0
+    r = 0
+    any_live = True
+    while any_live and r < L + 2:
+        c = {"live_above": False, "seen": False, "have_keeper": False,
+             "keeper_s": 0}
+        nxt = False
+        if in_regs:
+            # every slot extends before any warp operation
+            ok, kp = _model_extend(fm, q, L, minv, np.concatenate(regs, 1))
+            for s in range(S):
+                if 32 * s < n:
+                    nxt |= _model_step(regs[s], ok[32 * s: 32 * s + 32],
+                                       kp[32 * s: 32 * s + 32], c).any()
+        else:
+            # a chunk's extension reads only its own entries, which no
+            # earlier chunk of the round has written: one call for all
+            ok, kp = pad(*_model_extend(fm, q, L, minv, mem),
+                         -(-n // 32) * 32)
+            for j0 in range(0, n, 32):
+                x = load(j0)
+                nxt |= _model_step(x, ok[j0: j0 + 32], kp[j0: j0 + 32],
+                                   c).any()
+                m = min(32, n - j0)
+                mem[:, j0:j0 + m] = x[:, :m]
+        r += 1
+        any_live = nxt
+    if in_regs:
+        for s in range(S):
+            m = max(min(32, n - 32 * s), 0)
+            mem[:, 32 * s: 32 * s + m] = regs[s][:, :m]
+    return r
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+def test_warp_model_equals_bwd_pass_on_edge_lanes(fms, edge, edge_pass, S):
+    """The numpy model of the kernel's warp, lane by lane, at S register
+    slots (lanes longer than 32 * S through the chunked path), against the
+    plain pass over all edge lanes at once: all 7 state arrays equal, and
+    the most rounds of any lane equal the pass's rounds."""
+    from mpibwa_tpu_torch.ops import bwd_cuda as BC
+
+    _, tfm = fms
+    e = edge["all"]
+    lanes, state0, want, want_rounds = edge_pass
+    L = e["q"].shape[1]
+    got = state0.numpy().copy()
+    rounds = []
+    chunked = 0
+    for ln in range(e["NL"]):
+        a, b = e["lane_off"][ln], e["lane_off"][ln + 1]
+        mem = got[:, a:b].copy()
+        rounds.append(_warp_model(tfm, e["q"][ln], L, int(e["minv"][ln]),
+                                  mem, S))
+        got[:, a:b] = mem
+        chunked += int(b - a > 32 * S)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert max(rounds) == want_rounds
+    assert chunked >= 1  # the lanes of 300 entries
+    assert S > 1 or chunked >= 5
+
+
+@pytest.mark.parametrize("mode,device,idt,want", [
+    ("auto", "cuda", torch.int32, "pallas"),
+    ("auto", "cpu", torch.int32, "flat"),
+    ("auto", "cuda", torch.int64, "flat"),
+    ("auto", "cpu", torch.int64, "flat"),
+    ("flat", "cuda", torch.int32, "flat"),
+    ("pallas", "cpu", torch.int32, "pallas"),
+    ("pallas_interp", "cuda", torch.int32, "pallas_interp"),
+])
+def test_backward_engine_choice(monkeypatch, mode, device, idt, want):
+    """MPIBWA_BWD=auto takes the pass kernel on a CUDA int32 index and the
+    flat engine on the CPU and on the int64 path; the other modes mean
+    what they say (a stub index stands for a card)."""
+    from mpibwa_tpu_torch.pipeline.device_seed import _backward_engine
+
+    monkeypatch.setenv("MPIBWA_BWD", mode)
+    fm = types.SimpleNamespace(device=torch.device(device), idt=idt)
+    assert _backward_engine(fm) == want
 
 
 def _collect(seeder_cls, fm, reads, mode, monkeypatch):
@@ -326,7 +593,9 @@ def test_pallas_needs_the_int32_path(index, reads, monkeypatch):
 @pytest.mark.parametrize("pe", [True, False], ids=["pe", "se"])
 def test_cli_mem_identical_under_the_knob(toy_paths, tmp_path, monkeypatch,
                                           pe):
-    """`cli mem` with MPIBWA_BWD=pallas writes the default run's bytes."""
+    """`cli mem` writes the same bytes under MPIBWA_BWD=auto (on the CPU:
+    the flat engine), flat and pallas (the pass wrapper, here its plain
+    pass); only pallas goes through run_backward_fused."""
     from mpibwa_tpu_torch import cli
     from mpibwa_tpu_torch.ops import bwd_cuda
 
@@ -339,7 +608,7 @@ def test_cli_mem_identical_under_the_knob(toy_paths, tmp_path, monkeypatch,
     args = ["-t", "1", "-o", "out", toy_paths["ref"], toy_paths["r1"]] \
         + ([toy_paths["r2"]] if pe else [])
     sams = {}
-    for mode in ("auto", "pallas"):
+    for mode in ("auto", "flat", "pallas"):
         monkeypatch.setenv("MPIBWA_BWD", mode)
         d = tmp_path / mode
         d.mkdir()
@@ -348,14 +617,17 @@ def test_cli_mem_identical_under_the_knob(toy_paths, tmp_path, monkeypatch,
         assert cli.main(["mem"] + args) == 0
         assert (len(calls) > n0) == (mode == "pallas")
         sams[mode] = (d / "out.sam").read_bytes()
-    assert sams["pallas"] == sams["auto"]
+    assert sams["pallas"] == sams["auto"] == sams["flat"]
     assert sams["auto"].count(b"\n") > 200
 
 
 @pytest.mark.gpu
-def test_kernel_matches_plain_on_gpu(index, entry):
-    """The CUDA round kernel equals the plain round on the card, round by
-    round from the entry state, in place."""
+def test_kernel_matches_plain_on_gpu(index, entry, edge):
+    """The CUDA pass kernel equals the plain pass on the card, in place, in
+    exactly one launch a pass: on the toy entries and on every edge lane,
+    at each register instance (the slot count forced through max_len; the
+    lanes longer than 32 slots take the chunked path), with the round
+    count."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
     from mpibwa_tpu_torch.ops import bwd_cuda as BC
@@ -363,17 +635,22 @@ def test_kernel_matches_plain_on_gpu(index, entry):
 
     dev = torch.device("cuda")
     fm = DeviceFMIndex(index, dev)
-    lanes, state = _port_state(entry)
-    lanes = BC.BwdLanes(*(t.to(dev) for t in lanes))
-    state = state.to(dev)
-    want = state.clone()
-    rounds = 0
-    while bool(want[BC.LIVE].any()):
-        before = BC.bwd_round_kernel.launches
-        want = BC.bwd_round(fm, lanes, want)
-        BC.bwd_round_kernel(fm, lanes, state)
-        torch.cuda.synchronize()
-        assert BC.bwd_round_kernel.launches == before + 1
-        rounds += 1
-        assert torch.equal(state, want), rounds
-    assert rounds > 5
+    for e in (entry, edge["all"]):
+        lanes, state0 = _port_state(e)
+        lanes = lanes._replace(**{k: getattr(lanes, k).to(dev) for k in
+                                  ("qrows", "lane_off", "minv", "lane_e")})
+        state0 = state0.to(dev)
+        want_rounds = torch.zeros(1, dtype=torch.int32, device=dev)
+        want = BC.bwd_pass(fm, lanes, state0.clone(), want_rounds)
+        for max_len in (1, 33, 65, 129, lanes.max_len):
+            state = state0.clone()
+            rounds = torch.zeros(1, dtype=torch.int32, device=dev)
+            before = BC.bwd_pass_kernel.launches
+            out = BC.bwd_pass_kernel(fm, lanes._replace(max_len=max_len),
+                                     state, rounds)
+            torch.cuda.synchronize()
+            assert out is state
+            assert BC.bwd_pass_kernel.launches == before + 1
+            assert torch.equal(state, want), max_len
+            assert torch.equal(rounds, want_rounds), max_len
+        assert int(want_rounds[0]) > 5
