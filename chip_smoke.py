@@ -27,10 +27,16 @@ Phases, one printed line (or more) each:
   8. phase 4's run with MPIBWA_BWD=flat MPIBWA_PALLAS=1 (the flat backward
      engine, every round extending through the fused occ4 kernel): SAM
      byte-identical to phase 4's;
-  9. phase 4's run with MPIBWA_BWD=flat, then the default again, in turns
-     after phase 8: both SAMs byte-identical to phase 4's; reads/s and the
-     backward stages of each, and whether the default is slower than flat
-     against both of its neighbours (phase 4 before, the default after);
+  9. phase 4's run with MPIBWA_BWD=flat, the default, MPIBWA_BWD=v8 and
+     the default again, in turns after phase 8: every SAM byte-identical
+     to phase 4's; reads/s and the backward stages of each, whether the
+     default is slower than flat against both of its neighbours and
+     whether v8 beats the default against both of its neighbours;
+  11. the v8 turn of phase 9 (PE, MPIBWA_EXT=device, phase 4's input):
+     its SAM byte-identical to phase 4's, its stages (fwd1, bwd1, pass2
+     with p2_fwd and p2_bwd), host reads of the backward, pass-2 runs on
+     the speculative route and redone, v8 passes redone on the flat engine
+     and peak device memory;
   10. the default run and phase 8's once more on the first --traced-pairs
      pairs (5,000) under torch.profiler (CUDA activity only): each
      kernel's own device time summed over the run ("run_ms", over
@@ -44,7 +50,18 @@ Phases, one printed line (or more) each:
      from phase 4's first backward call (all seven state arrays, the round
      count and the emitted mems equal) and over the edge lanes of
      tests/_torch_toy.bwd_edge_lanes at every register instance; a whole
-     pass timed (median of 5 after a warm-up) and its bound over the pass.
+     pass timed (median of 5 after a warm-up) and its bound over the pass;
+  2e. the int64 position path: the phase 3 index loaded again with
+     force_wide=True, collect_flat on the first 16,384 reads of phase 4's
+     input under v8 (== v8 on the int32 index in all three arrays) and
+     under flat (== v8 on (x0, x2, info), the offsets and the fallback
+     flags), v8 and flat on it timed in turns (medians of 3 after a
+     warm-up) with peak device memory;
+  2f. the default's pass-1 backward of phase 4's first microbatch
+     (DeviceSeeder._backward_rows, captured) replayed and timed in its
+     parts (lane tables and entries, entry state, pass kernel, the rows'
+     compaction and pull) beside the per-lane-list route it replaces
+     (medians of 5, a synchronize around each part).
 Phases 4, 8 and 9 print each kernel's launches by batch size.
 Every launch count is set to 0 just before a run of the main path and read
 just after. Each kernel's bound is the larger of the bytes its inputs need
@@ -298,11 +315,13 @@ class Spy:
     def __init__(self):
         from mpibwa_tpu_torch.ops import bwd_cuda, extend_cuda, occ4_cuda
         from mpibwa_tpu_torch.parallel.runtime import Runtime
+        from mpibwa_tpu_torch.pipeline.device_seed import DeviceSeeder
 
         self.runtimes = []
         self.captured = []
         self.occ4_ik = None
         self.bwd_call = None
+        self.rows_call = None
         self.sizes = {name: [] for name in KERNELS}
         self._lock = threading.Lock()
         self._mods = (extend_cuda, occ4_cuda, bwd_cuda)
@@ -310,6 +329,7 @@ class Spy:
         self._real_occ4 = occ4_cuda.extend_kernel
         self._real_bwd = bwd_cuda.run_backward_fused
         self._real_pass = bwd_cuda.bwd_pass_kernel
+        self._real_rows = DeviceSeeder._backward_rows
         self.wrappers = {"extend": extend_cuda.extend_batch_kernel,
                          "occ4_extend": occ4_cuda.extend_kernel,
                          "bwd_pass": bwd_cuda.bwd_pass_kernel}
@@ -359,6 +379,13 @@ class Spy:
             return spy._real_bwd(fm, qrows, entry, n_lanes, x0, minv,
                                  lane_off, **k)
 
+        def capture_rows(seeder, qd, call_list, ivals, infos):
+            with spy._lock:
+                if spy.rows_call is None:
+                    spy.rows_call = (seeder, qd, np.array(call_list), ivals,
+                                     infos)
+            return spy._real_rows(seeder, qd, call_list, ivals, infos)
+
         def size_pass(fm, lanes, state, rounds=None):
             return sized("bwd_pass", spy._real_pass, state.shape[1], fm,
                          lanes, state, rounds)
@@ -368,6 +395,7 @@ class Spy:
         occ4_cuda.extend_kernel = capture_occ4
         bwd_cuda.run_backward_fused = capture_bwd
         bwd_cuda.bwd_pass_kernel = size_pass
+        DeviceSeeder._backward_rows = capture_rows
 
     @property
     def launches(self) -> dict:
@@ -388,8 +416,10 @@ class Spy:
 
     def close(self):
         from mpibwa_tpu_torch.parallel.runtime import Runtime
+        from mpibwa_tpu_torch.pipeline.device_seed import DeviceSeeder
 
         Runtime.__init__ = self._rt_init
+        DeviceSeeder._backward_rows = self._real_rows
         extend_cuda, occ4_cuda, bwd_cuda = self._mods
         extend_cuda.extend_batch_kernel = self._real
         occ4_cuda.extend_kernel = self._real_occ4
@@ -648,8 +678,9 @@ def phase2d(fm, call, toy, seed: int) -> dict:
     E, NL, L = state0.shape[1], qrows.shape[0], qrows.shape[1]
     want, c = pass_counts(fm, lanes, state0)
     worst, kst = check_pass(fm, lanes, state0, want, c["rounds"])
-    mems_k = BC.pack_emitted(kst, entry[1], lanes.lane_e)
-    mems_p = BC.pack_emitted(want, entry[1], lanes.lane_e)
+    mems_k, _ = BC.pull_rows(BC.pack_emitted(kst, entry[1], lanes.lane_e), E)
+    mems_p, _ = BC.pull_rows(BC.pack_emitted(want, entry[1], lanes.lane_e),
+                             E)
     if mems_k.shape != mems_p.shape or (mems_k != mems_p).any():
         raise Failed("pass kernel and plain pass emit different mems")
 
@@ -703,6 +734,150 @@ def phase2d(fm, call, toy, seed: int) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+WIDE_READS = 16_384  # phase 2e: the first microbatch of phase 4's input
+
+
+def phase2e(ref: str, fm32, reads) -> None:
+    """The int64 position path on the phase 3 genome: collect_flat under v8
+    == v8 on the int32 index (all three arrays), flat == v8 on (x0, x2,
+    info), the offsets and the fallback flags; v8 and flat timed in turns
+    (medians of 3 after a warm-up) with peak device memory."""
+    from mpibwa_tpu_torch.core.opts import mem_opt_init
+    from mpibwa_tpu_torch.index.format import load_index
+    from mpibwa_tpu_torch.ops.fmd import DeviceFMIndex
+    from mpibwa_tpu_torch.pipeline.device_seed import DeviceSeeder
+
+    t0 = time.time()
+    wide = DeviceFMIndex(load_index(ref), fm32.device, force_wide=True)
+    torch.cuda.synchronize()
+    log(f"phase 2e int64 index (force_wide) of the phase 3 genome on the "
+        f"card in {time.time() - t0:.1f} s")
+    qs = [s.seq for s in reads]
+    seeders = {k: DeviceSeeder(fm, mem_opt_init()) for k, fm in
+               (("v8 int32", fm32), ("v8", wide), ("flat", wide))}
+
+    def run(key):
+        os.environ["MPIBWA_BWD"] = key.split()[0]
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = seeders[key].collect_flat(qs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+        finally:
+            os.environ.pop("MPIBWA_BWD", None)
+        if out is None:
+            raise Failed(f"phase 2e: collect_flat under {key} overflowed")
+        return out, dt
+
+    out = {k: run(k)[0] for k in seeders}  # the warm-up
+    same32 = all(np.array_equal(a, b)
+                 for a, b in zip(out["v8"], out["v8 int32"]))
+    a, b = out["v8"], out["flat"]
+    same_flat = (np.array_equal(a[0][:, [0, 2, 3]], b[0][:, [0, 2, 3]])
+                 and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2]))
+    log(f"phase 2e {len(qs)} reads, {len(a[0])} seed rows, "
+        f"{int(a[2].sum())} reads to the host engine: v8 int64 == v8 int32 "
+        f"(all three arrays): {same32}; flat int64 == v8 int64 on (x0, x2, "
+        f"info), offsets and fallback: {same_flat}")
+    if not (same32 and same_flat):
+        raise Failed("phase 2e: the int64 path disagrees")
+    times = {"v8": [], "flat": []}
+    peak = {"v8": 0, "flat": 0}
+    for _ in range(3):
+        for key in times:
+            torch.cuda.reset_peak_memory_stats()
+            got, dt = run(key)
+            peak[key] = max(peak[key], torch.cuda.max_memory_allocated())
+            times[key].append(dt)
+            if not all(np.array_equal(x, y) for x, y in zip(got, out[key])):
+                raise Failed(f"phase 2e: {key} changed between runs")
+    v8, fl = times["v8"], times["flat"]  # turns: v8, flat, v8, flat, ...
+    beats = all(v8[i] < fl[i] and (i == 0 or v8[i] < fl[i - 1])
+                for i in range(3))
+    log(f"phase 2e int64: v8 {'beats' if beats else 'does not beat'} flat "
+        f"against both of its neighbours in every turn")
+    for key in times:
+        st = {k: round(v, 3) if isinstance(v, float) else v
+              for k, v in seeders[key].times.items()}
+        log(f"phase 2e int64 {key}: collect_flat {np.median(times[key]):.3f} "
+            f"s (median of 3 after a warm-up, in turns; "
+            f"{', '.join(f'{t:.3f}' for t in times[key])}); peak device "
+            f"memory {peak[key] / 2**30:.3f} GiB (both indexes resident); "
+            f"over its 4 runs: {st}")
+
+
+def phase2f(call, seed_times: dict) -> None:
+    """The default's first pass-1 backward of phase 4 replayed, each part
+    timed alone (median of 5, a synchronize around each): what a bwd1 call
+    is made of, beside the per-lane-list route the raw rows replace."""
+    from mpibwa_tpu_torch.ops import bwd_cuda as BC
+    from mpibwa_tpu_torch.ops import seeding_flat as SF
+
+    seeder, qd, calls, ivals, infos = call
+    fm = seeder.dfm
+    msl = seeder.opt.min_seed_len
+
+    def timed(fn, reps=5):
+        out, ms = None, []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return out, float(np.median(ms[1:]))
+
+    def tables():
+        arr = calls.astype(np.int64)
+        lane_off = np.zeros(len(arr) + 1, np.int64)
+        np.cumsum(arr[:, 2], out=lane_off[1:])
+        lane_tbl = np.stack([arr[:, 1], arr[:, 2], lane_off[:-1]],
+                            axis=1).astype(np.int32)
+        lrow = torch.from_numpy(arr[:, 0].astype(np.int32)).to(qd.device)
+        ent = SF.assemble_entries(ivals, infos, lrow,
+                                  torch.from_numpy(lane_tbl).to(qd.device),
+                                  int(lane_off[-1]))
+        return arr, lane_off, qd[lrow.long()], ent
+
+    (arr, lane_off, qrows, ent), ms_tab = timed(tables)
+    (lanes, state0), ms_state = timed(lambda: BC.entry_state(
+        qrows, ent, arr[:, 3], arr[:, 4], lane_off))
+    states = [state0.clone() for _ in range(6)]
+    st, ms_kernel = timed(lambda: BC.bwd_pass_kernel(fm, lanes, states.pop()))
+    N = len(arr)
+    (rows, _), ms_rows = timed(lambda: BC.pull_rows(
+        BC.pack_emitted(st, ent[1], lanes.lane_e, msl), N // 8 + 1024))
+
+    def lists_route():
+        every, _ = BC.pull_rows(BC.pack_emitted(st, ent[1], lanes.lane_e),
+                                st.shape[1])
+        mems = [[] for _ in range(N)]
+        for x0, x1, x2, start, end, ln in every.tolist():
+            mems[ln].append((x0, x1, x2, (start << 32) | end))
+        out = []
+        for ln, mem in enumerate(mems):
+            for iv in mem:
+                s_, e_ = iv[3] >> 32, iv[3] & 0xFFFFFFFF
+                if e_ - s_ >= msl:
+                    out.append((iv[0], iv[1], iv[2], s_, e_, ln))
+        return np.array(out, np.int32).reshape(-1, 6), len(every)
+
+    (old_rows, n_all), ms_lists = timed(lists_route)
+    if not np.array_equal(old_rows, rows):
+        raise Failed("phase 2f: raw rows differ from the list route's")
+    _, ms_whole = timed(lambda: seeder._backward_rows(qd, calls, ivals,
+                                                      infos))
+    log(f"phase 2f the default's first pass-1 backward of phase 4 ({N} "
+        f"lanes, E={st.shape[1]}, {n_all} mems, {len(rows)} of at least "
+        f"{msl} bases), ms (medians of 5 after a warm-up): lane tables, "
+        f"uploads and entries {ms_tab:.3f}; entry state {ms_state:.3f}; pass "
+        f"kernel {ms_kernel:.3f}; rows compacted and pulled {ms_rows:.3f}; "
+        f"the whole raw route (_backward_rows) {ms_whole:.3f}; the "
+        f"per-lane-list route in place of the compaction {ms_lists:.3f}; "
+        f"phase 4's bwd1 over the run {seed_times.get('bwd1', 0.0):.3f} s")
+
+
 def report_sizes(tag: str, r: dict, kernel: str) -> None:
     """Print a kernel's launches over a main-path run by batch size."""
     log(f"{tag} {kernel} over the run: {r['launches'][kernel]} launches; "
@@ -744,7 +919,7 @@ def profiled_run(tag, workdir, argv, spy, knobs, kernels, base_sam) -> dict:
 def knob_run(tag, workdir, argv, spy, knobs, kernels, base_sam, n_reads,
              absent=()):
     """A main-path run under knobs: each of its kernels launched, none of
-    the absent ones, its SAM equal to phase 4's."""
+    the absent ones, its SAM equal to base_sam (phase 4's)."""
     r = run_cli(workdir, argv, spy, "device", knobs)
     report_run(tag, r, n_reads)
     same = r["sam"] == base_sam
@@ -761,14 +936,19 @@ def knob_run(tag, workdir, argv, spy, knobs, kernels, base_sam, n_reads,
 
 
 def backward_stages(r: dict, n_reads: int) -> str:
-    """reads/s and the backward stages of a run, for phase 9's turns."""
+    """reads/s and the seeding stages of a run, for phase 9's turns."""
     st = r["seed_times"]
     return (f"{n_reads / r['align']:.1f} reads/s (align {r['align']:.2f} s), "
-            f"bwd1 {st.get('bwd1', 0.0):.3f} s, pass2 "
-            f"{st.get('pass2', 0.0):.3f} s, bwd_segments "
+            f"fwd1 {st.get('fwd1', 0.0):.3f} s, bwd1 "
+            f"{st.get('bwd1', 0.0):.3f} s, pass2 {st.get('pass2', 0.0):.3f} s "
+            f"(p2_fwd {st.get('p2_fwd', 0.0):.3f} s, p2_bwd "
+            f"{st.get('p2_bwd', 0.0):.3f} s), bwd_segments "
             f"{st.get('bwd_segments', 0)}, bwd_rounds "
-            f"{st.get('bwd_rounds', 0)}, pass kernel launches "
-            f"{r['launches']['bwd_pass']}")
+            f"{st.get('bwd_rounds', 0)}, p2_spec {st.get('p2_spec', 0)}, "
+            f"p2_redo {st.get('p2_redo', 0)}, v8_redo {st.get('v8_redo', 0)}, "
+            f"overflow_microbatches {r['stats']['overflow_batches']}, pass "
+            f"kernel launches {r['launches']['bwd_pass']}, peak device memory "
+            f"{r['peak'] / 2**30:.3f} GiB")
 
 
 def main() -> int:
@@ -886,24 +1066,41 @@ def main() -> int:
                   ["occ4_extend"], pe["sam"], n_pe, absent=["bwd_pass"])
     launches["occ4_extend"] = r8["launches"]["occ4_extend"]
     report_sizes("phase 8", r8, "occ4_extend")
-    # phase 9: flat against the default, in turns after phase 8
+    # phase 9: flat, the default, v8 (phase 11), the default, in turns
+    # after phase 8
     r9f = knob_run("phase 9 PE MPIBWA_BWD=flat", os.path.join(work, "pe_flat"),
                    pe_argv, spy, {"MPIBWA_BWD": "flat"}, ["extend"],
                    pe["sam"], n_pe, absent=["bwd_pass"])
     r9d = knob_run("phase 9 PE default", os.path.join(work, "pe_default"),
                    pe_argv, spy, {}, ["extend", "bwd_pass"], pe["sam"], n_pe)
     report_sizes("phase 9 default", r9d, "bwd_pass")
+    # phase 11: the v8 engine on the main path (no kernel of its own)
+    r11 = knob_run("phase 11 PE MPIBWA_BWD=v8", os.path.join(work, "pe_v8"),
+                   pe_argv, spy, {"MPIBWA_BWD": "v8"}, ["extend"], pe["sam"],
+                   n_pe, absent=["bwd_pass"])
+    log(f"phase 11 v8: {backward_stages(r11, n_pe)}")
+    r9d2 = knob_run("phase 9 PE default again",
+                    os.path.join(work, "pe_default2"), pe_argv, spy, {},
+                    ["extend", "bwd_pass"], pe["sam"], n_pe)
     rate = {k: n_pe / r["align"] for k, r in
-            (("phase 4", pe), ("flat", r9f), ("default", r9d))}
+            (("phase 4", pe), ("flat", r9f), ("default", r9d), ("v8", r11),
+             ("default again", r9d2))}
     log(f"phase 9 turns: phase 4 default {backward_stages(pe, n_pe)}; "
-        f"MPIBWA_BWD=flat {backward_stages(r9f, n_pe)}; default again "
-        f"{backward_stages(r9d, n_pe)}")
+        f"MPIBWA_BWD=flat {backward_stages(r9f, n_pe)}; default "
+        f"{backward_stages(r9d, n_pe)}; MPIBWA_BWD=v8 "
+        f"{backward_stages(r11, n_pe)}; default again "
+        f"{backward_stages(r9d2, n_pe)}")
     slower = rate["default"] < rate["flat"] and rate["phase 4"] < rate["flat"]
     log(f"phase 9 the default (pass kernel) is "
         f"{'slower' if slower else 'not slower'} than MPIBWA_BWD=flat "
         f"against both of its neighbours: {rate['phase 4']:.1f} / "
         f"{rate['flat']:.1f} / {rate['default']:.1f} PE reads/s (phase 4, "
         f"flat, default)")
+    beats = rate["v8"] > rate["default"] and rate["v8"] > rate["default again"]
+    log(f"phase 9 MPIBWA_BWD=v8 {'beats' if beats else 'does not beat'} the "
+        f"default against both of its neighbours: {rate['default']:.1f} / "
+        f"{rate['v8']:.1f} / {rate['default again']:.1f} PE reads/s "
+        f"(default, v8, default again)")
     # phase 10: the default run and phase 8's again on the first pairs,
     # traced; every traced SAM equals the first one (and phase 4's when
     # the input is the whole of it)
@@ -926,7 +1123,8 @@ def main() -> int:
         traced.update(got)
     fm = spy.runtimes[-1].aligners[0].dfm  # phase 8's index, on the card
     spy.close()
-    if spy.occ4_ik is None or spy.bwd_call is None:
+    if (spy.occ4_ik is None or spy.bwd_call is None
+            or spy.rows_call is None):
         raise Failed("no occ4 batch or backward call captured from the main "
                      "path")
 
@@ -959,6 +1157,11 @@ def main() -> int:
                "occ4_extend": phase2c(rng, fm, spy.occ4_ik, _torch_toy),
                "bwd_pass": phase2d(fm, spy.bwd_call, _torch_toy,
                                    int(rng.integers(1 << 30)))}
+    phase2e(ref, fm, [s for pair in zip(
+        _torch_toy.load_reads(paths["r1"], limit=WIDE_READS // 2),
+        _torch_toy.load_reads(paths["r2"], limit=WIDE_READS // 2))
+        for s in pair])
+    phase2f(spy.rows_call, pe["seed_times"])
 
     log(f"total {time.time() - t_start:.1f}s")
     # no single PyTorch call computes any of the three functions

@@ -14,8 +14,9 @@ what they mean for mpibwa_tpu.cli. MPIBWA_PALLAS=1 serves the FM
 extension through the fused occ4 CUDA kernel (ops/occ4_cuda.py), opt-in
 as in mpibwa_tpu. On a CUDA device with the int32 position path each
 backward SMEM pass runs as one launch of the CUDA kernel of
-ops/bwd_cuda.py (MPIBWA_BWD=auto); MPIBWA_BWD=flat keeps the flat engine
-there. The
+ops/bwd_cuda.py, with the int64 path the v8 engine (MPIBWA_BWD=auto);
+MPIBWA_BWD=flat|pallas|v8 picks an engine (see
+pipeline/device_seed.py). The
 package shares nothing with mpibwa_tpu by import: the option parser and
 the ``index``, ``idx``, ``merge`` and ``mergebychr`` commands are its own
 copies. ``launch`` is not ported yet (ROADMAP.md).

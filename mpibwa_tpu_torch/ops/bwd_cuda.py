@@ -21,7 +21,8 @@ pass. ``bwd_pass_kernel(fm, lanes, state)`` runs a pass in place and
 returns the state. On a CUDA tensor it launches the kernel once or raises;
 on a CPU tensor it runs ``bwd_pass``. It counts its launches in
 ``bwd_pass_kernel.launches``. ``run_backward_fused`` drives one pass and
-returns per-lane mem lists.
+returns per-lane mem lists or, for the seeder's arrays route, the rows of
+the mems, filtered and compacted on the device.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 
 from mpibwa_tpu_torch.ops import _build
 from mpibwa_tpu_torch.ops.occ4_cuda import extend_blocks
+from mpibwa_tpu_torch.ops.pulls import pull_prefix
 from mpibwa_tpu_torch.ops.seeding_flat import (_seg_excl_cumsum,
                                                _seg_prev_keeper,
                                                _segment_start)
@@ -220,15 +222,35 @@ _WRAPPER = bwd_pass_kernel
 
 
 def pack_emitted(state: torch.Tensor, info_end: torch.Tensor,
-                 lane_e: torch.Tensor) -> np.ndarray:
-    """(n, 6) rows [x0, x1, x2, start, end, lane] of the emitted entries in
-    flat order: lane after lane and, within a lane, in emission order (the
-    slot of a lane's first live entry only moves down over the rounds)."""
-    idx = torch.nonzero(state[EMITTED]).squeeze(1)
-    cols = torch.stack([state[IK0], state[IK1], state[IK2], state[I] + 1,
-                        info_end.to(torch.int32), lane_e.to(torch.int32)],
-                       dim=1)
-    return cols[idx].cpu().numpy()
+                 lane_e: torch.Tensor, min_len: int = 0) -> torch.Tensor:
+    """The emitted entries at least min_len long as rows [x0, x1, x2,
+    start, end, lane] in flat order: lane after lane and, within a lane, in
+    emission order (the slot of a lane's first live entry only moves down
+    over the rounds). On the device, behind a header row [count, 0, 0, 0,
+    0, 0]: a (1 + E + 1, 6) int32 tensor, the last row a dump."""
+    E = state.shape[1]
+    start = state[I] + 1
+    end = info_end.to(torch.int32)
+    em = (state[EMITTED] != 0) & ((end - start) >= min_len)
+    cols = torch.stack([state[IK0], state[IK1], state[IK2], start, end,
+                        lane_e.to(torch.int32)], dim=1)
+    pos = torch.cumsum(em, 0)  # the row after the header
+    out = torch.zeros((E + 2, 6), dtype=torch.int32, device=state.device)
+    out[torch.where(em, pos, E + 1)] = cols
+    out[0, 0] = em.sum()
+    return out
+
+
+def pull_rows(packed: torch.Tensor, est_rows: int
+              ) -> "tuple[np.ndarray, int]":
+    """(rows, host reads) of pack_emitted's output: one pull of the header
+    and the first est_rows rows, a second only when there are more."""
+    est = min(packed.shape[0] - 2, max(int(est_rows), 0))
+    first = pull_prefix(packed, 1 + est)
+    n = int(first[0, 0])
+    if n <= est:
+        return first[1: 1 + n], 1
+    return pull_prefix(packed[1:], n), 2
 
 
 def entry_state(qrows_dev, entry_dev, x0_np, minv_np, lane_off_np
@@ -252,7 +274,8 @@ def entry_state(qrows_dev, entry_dev, x0_np, minv_np, lane_off_np
 
 def run_backward_fused(fm, qrows_dev, entry_dev, n_lanes: int, x0_np,
                        minv_np, lane_off_np, interpret: bool = False,
-                       stats: "dict | None" = None):
+                       stats: "dict | None" = None, raw: bool = False,
+                       min_len: int = 0, est_rows: "int | None" = None):
     """A whole backward pass in one launch, with the contract of
     seeding_flat.run_backward_flat.
 
@@ -260,15 +283,21 @@ def run_backward_fused(fm, qrows_dev, entry_dev, n_lanes: int, x0_np,
     (E,), lane (E,), live (E,) bool) from assemble_entries at the real entry
     count E; x0_np/minv_np: (NL,) numpy; lane_off_np: (NL + 1,) entry
     offsets. interpret=True runs the plain version ``bwd_pass`` on whatever
-    device the tensors lie on. stats, when given, accumulates "bwd_rounds"
-    (the pass's round count) and "bwd_segments" (host round trips: one, the
-    read of the mems). Nothing crosses to the host before that read.
+    device the tensors lie on. Mems shorter than min_len are dropped on the
+    device; the rest come to the host in one pull with the first est_rows
+    rows (pull_rows; by default every entry when min_len is 0, which keeps
+    every mem, else n_lanes // 8 + 1024, several times the mems 101-bp
+    reads give at min_len 19). stats, when given, accumulates
+    "bwd_rounds" (the pass's round count) and "bwd_segments" (host reads
+    of the mems).
     Returns (per-lane mem lists [(x0, x1, x2, info)], overflow (NL,) bool,
-    all false: a mem lives in its entry's own slot, so no buffer fills)."""
-    out_mems = [[] for _ in range(n_lanes)]
-    overflow = np.zeros(n_lanes, bool)
+    all false: a mem lives in its entry's own slot, so no buffer fills),
+    or with raw=True ((n, 6) int32 rows [x0, x1, x2, start, end, lane],
+    chronological within a lane, False)."""
     if entry_dev[0].shape[0] == 0:
-        return out_mems, overflow
+        if raw:
+            return np.zeros((0, 6), np.int32), False
+        return [[] for _ in range(n_lanes)], np.zeros(n_lanes, bool)
     lanes, state = entry_state(qrows_dev, entry_dev, x0_np, minv_np,
                                lane_off_np)
     rounds = torch.zeros(1, dtype=torch.int32, device=state.device)
@@ -281,10 +310,16 @@ def run_backward_fused(fm, qrows_dev, entry_dev, n_lanes: int, x0_np,
         # lands before the read of the mems completes, in stream order
         rounds_host = torch.empty(1, dtype=torch.int32, pin_memory=True)
         rounds_host.copy_(rounds, non_blocking=True)
-    rows = pack_emitted(state, entry_dev[1], lanes.lane_e)
+    if est_rows is None:
+        est_rows = state.shape[1] if min_len <= 0 else n_lanes // 8 + 1024
+    rows, reads = pull_rows(
+        pack_emitted(state, entry_dev[1], lanes.lane_e, min_len), est_rows)
     if stats is not None:
         stats["bwd_rounds"] = stats.get("bwd_rounds", 0) + int(rounds_host[0])
-        stats["bwd_segments"] = stats.get("bwd_segments", 0) + 1
+        stats["bwd_segments"] = stats.get("bwd_segments", 0) + reads
+    if raw:
+        return rows, False
+    out_mems = [[] for _ in range(n_lanes)]
     for x0, x1, x2, start, end, ln in rows.tolist():
         out_mems[ln].append((x0, x1, x2, (start << 32) | end))
-    return out_mems, overflow
+    return out_mems, np.zeros(n_lanes, bool)

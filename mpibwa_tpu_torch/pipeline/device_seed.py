@@ -1,19 +1,27 @@
 """Device-batched seed collection: exact mem_collect_intv on torch tensors.
 
 Counterpart of mpibwa_tpu/pipeline/device_seed.py. Drives the forward
-automata (ops/seeding.py) and the flat backward engine
-(ops/seeding_flat.py) over a read batch and assembles, per read, the same
-interval list that core.chain.collect_intv produces. Reads that overflow a
-device buffer fall back to the scalar host engine.
+automata (ops/seeding.py) and a backward engine over a read batch and
+assembles, per read, the same interval list that core.chain.collect_intv
+produces (collect_batch), or the same intervals as flat arrays
+(collect_flat). Reads that overflow a device buffer fall back to the
+scalar host engine.
 
-Backward engines: MPIBWA_BWD=auto runs each pass as one launch of the
+Backward engines (MPIBWA_BWD): auto runs each pass as one launch of the
 CUDA pass kernel (ops/bwd_cuda.py) on a CUDA device with the int32
-position path, and the exact "flat" engine elsewhere (the CPU, the int64
-path), as the JAX package keeps flat for the CPU. flat forces the flat
-engine; pallas takes the pass kernel on any int32 index (its plain pass on
-the CPU) and pallas_interp the plain pass on any device. v8 and contig
-raise NotImplementedError (ROADMAP.md, queue 1), so the v8-only sync-free
-pass-2 route is not here either; pass 2 takes the synchronous route.
+position path, v8 on a CUDA device with the int64 path, and the exact
+"flat" engine (ops/seeding_flat.py) on the CPU; each choice was timed on
+an H100 against the others (PERF.md). flat forces the flat engine; pallas
+takes the pass kernel on any int32 index (its plain pass on the CPU) and
+pallas_interp the plain pass on any device; v8 is the JAX package's
+accelerator engine (ops/backward8.py, either position dtype; an overflow
+is redone on the flat engine). The JAX package's opt-in contig engine is
+not ported (ROADMAP.md). In collect_flat, v8 and the pass engine hand
+back the rows of the mems, filtered and compacted on the device; flat
+goes through per-lane lists. Under v8, pass 2 builds its lane tables
+on the device from the second batch on (the speculative route), so the
+host does not wait between pass 2's forward and its backward; a capacity
+miss redoes it on the synchronous route.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from mpibwa_tpu_torch.core.sortutil import ks_introsort
+from mpibwa_tpu_torch.ops import backward8 as B8
 from mpibwa_tpu_torch.ops import seeding
 from mpibwa_tpu_torch.ops import seeding_flat as SF
 from mpibwa_tpu_torch.ops.pulls import pull_prefix, pull_prefix_async
@@ -49,18 +58,63 @@ def _backward_engine(fm) -> str:
     """The backward engine for index fm (its ``device`` and ``idt``)."""
     mode = os.environ.get("MPIBWA_BWD", "auto")
     if mode == "auto":
-        return ("pallas" if fm.device.type == "cuda"
-                and fm.idt == torch.int32 else "flat")
-    if mode == "flat":
-        return "flat"
-    if mode in ("pallas", "pallas_interp"):
+        if fm.device.type != "cuda":
+            return "flat"
+        return "pallas" if fm.idt == torch.int32 else "v8"
+    if mode in ("flat", "pallas", "pallas_interp", "v8"):
         return mode
-    if mode in ("v8", "contig"):
+    if mode == "contig":
         raise NotImplementedError(
-            f"MPIBWA_BWD={mode}: the flat engine and the fused rounds "
-            "(pallas) are ported to torch; see ROADMAP.md queue 1 (v8 "
-            "backward, contig engine)")
+            "MPIBWA_BWD=contig: the JAX package's contig engine is not "
+            "ported to torch; see ROADMAP.md queue 1")
     raise ValueError(f"unknown MPIBWA_BWD={mode!r}")
+
+
+def _v8_lanes(n: int) -> int:
+    """Lane count of a v8 pass of n lanes: a power of two, at least 16."""
+    return max(16, 1 << (n - 1).bit_length())
+
+
+def _lane_tables(arr: np.ndarray, NLp: int):
+    """Lane tables of the call rows arr ((N, 5) [row, push_start,
+    push_len, x, min_intv]) padded with zero-length lanes to NLp: (lane_row,
+    lane_tbl (NLp, 3) [push_start, push_len, entry_start], x0, minv, the
+    entry count)."""
+    N = arr.shape[0]
+    lane_row = np.zeros(NLp, np.int32)
+    lane_tbl = np.zeros((NLp, 3), np.int32)
+    x0 = np.zeros(NLp, np.int32)
+    minv = np.ones(NLp, np.int64)
+    lane_row[:N] = arr[:, 0]
+    lane_tbl[:N, 0] = arr[:, 1]
+    lane_tbl[:N, 1] = arr[:, 2]
+    starts = np.zeros(N, np.int64)
+    if N > 1:
+        np.cumsum(arr[:-1, 2], out=starts[1:])
+    lane_tbl[:N, 2] = starts
+    x0[:N] = arr[:, 3]
+    minv[:N] = arr[:, 4]
+    e = int(arr[:, 2].sum())
+    lane_tbl[N:, 2] = e  # pad lanes: zero-length at the end
+    return lane_row, lane_tbl, x0, minv, e
+
+
+def _p2_tables(fwd2, cap: int):
+    """Pass 2's backward lane tables on the device, from its single-call
+    forward: lane_tbl rows [push_start, len, entry_start], x0 of each lane,
+    a control vector [entries] ++ the lanes' overflow flags (pulled after
+    the backward) and a device flag for "the entries exceed cap". Lanes
+    whose forward overflowed count as zero-length: their reads go to the
+    host engine, and their call length is no bound."""
+    live = (fwd2.n_calls > 0) & ~fwd2.overflow
+    ln = torch.where(live, fwd2.call_len[:, 0], 0).to(torch.int32)
+    starts = (torch.cumsum(ln, 0) - ln).to(torch.int32)
+    ltbl = torch.stack([fwd2.call_start[:, 0].to(torch.int32), ln, starts],
+                       dim=1)
+    e2 = ln.sum()
+    ctl = torch.cat([e2.to(torch.int32)[None],
+                     fwd2.overflow.to(torch.int32)])
+    return ltbl, fwd2.call_x[:, 0].to(torch.int32), ctl, e2 > cap
 
 
 def _pack_fwd(fwd) -> torch.Tensor:
@@ -164,8 +218,13 @@ class DeviceSeeder:
     def __init__(self, dfm, opt):
         self.dfm = dfm
         self.opt = opt
-        self.times: dict = {}  # stage seconds, plus "bwd_segments"
+        # stage seconds, and counts: "bwd_segments" (host reads of the
+        # backward), "bwd_rounds" (the pass kernel's rounds), "v8_redo"
+        # (v8 passes redone on the flat engine), "p2_spec"/"p2_redo" (pass
+        # 2 on the speculative route / redone on the synchronous one)
+        self.times: dict = {}
         self._e1_est: dict = {}
+        self._p2_est: dict = {}  # "e": pass 2's entries in the last batch
         self.last_qd = None
 
     def _mark(self, name, t0):
@@ -174,6 +233,14 @@ class DeviceSeeder:
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.dfm.device)
+
+    def _lanes(self, qd, arr: np.ndarray, NLp: int):
+        """The lane tables of call rows arr padded to NLp lanes, on the
+        device: (read rows, (lane_row, lane_tbl), x0, minv, entries)."""
+        lane_row, lane_tbl, x0, minv, e = _lane_tables(arr, NLp)
+        lrow_d = self._upload(lane_row)
+        return (qd[lrow_d.long()], (lrow_d, self._upload(lane_tbl)), x0,
+                minv, e)
 
     def _run_backward_for_calls(self, qd, call_list, ivals_dev, infos_dev,
                                 fallback, fb_map=None):
@@ -186,42 +253,36 @@ class DeviceSeeder:
             return []
         engine = _backward_engine(self.dfm)
         arr = np.asarray(call_list, dtype=np.int64)  # (n, 5)
-        if engine != "flat":
+        if engine in ("pallas", "pallas_interp"):
             return self._run_backward_fused(qd, arr, ivals_dev, infos_dev,
                                             engine == "pallas_interp")
-        NLp = SF._pad_cap(N)
-        lane_row = np.zeros(NLp, np.int32)
-        lane_tbl = np.zeros((NLp, 3), np.int32)
-        x0 = np.zeros(NLp, np.int32)
-        minv = np.ones(NLp, np.int64)
-        lane_row[:N] = arr[:, 0]
-        lane_tbl[:N, 0] = arr[:, 1]
-        lane_tbl[:N, 1] = arr[:, 2]
-        starts = np.zeros(N, np.int64)
-        if N > 1:
-            np.cumsum(arr[:-1, 2], out=starts[1:])
-        lane_tbl[:N, 2] = starts
-        x0[:N] = arr[:, 3]
-        minv[:N] = arr[:, 4]
-        e = int(arr[:, 2].sum())
-        lane_tbl[N:, 2] = e  # pad lanes: zero-length at the end
-        lrow_d = self._upload(lane_row)
-        entries = SF.assemble_entries(ivals_dev, infos_dev, lrow_d,
-                                      self._upload(lane_tbl),
-                                      SF._pad_cap(e))
-        mems, overflow = SF.run_backward_flat(
-            self.dfm, qd[lrow_d.long()], entries, NLp, x0, minv,
-            stats=self.times)
+        NLp = _v8_lanes(N) if engine == "v8" else SF._pad_cap(N)
+        qrows, tables, x0, minv, e = self._lanes(qd, arr, NLp)
+        entries = SF.assemble_entries(
+            ivals_dev, infos_dev, *tables,
+            B8.cap_bucket(e, 1024) if engine == "v8" else SF._pad_cap(e))
+        if engine == "v8":
+            mems, overflow = B8.run_backward8(
+                self.dfm, qrows, entries, NLp, x0, minv,
+                min_len=self.opt.min_seed_len, stats=self.times)
+            if overflow.any():  # an accumulator filled: redo exactly
+                self.times["v8_redo"] = self.times.get("v8_redo", 0) + 1
+                engine = "flat"
+        if engine == "flat":
+            mems, overflow = SF.run_backward_flat(
+                self.dfm, qrows, entries, NLp, x0, minv, stats=self.times)
         for ln in np.nonzero(overflow[:N])[0]:
             row = call_list[ln][0]
             fallback[fb_map[row] if fb_map is not None else row] = True
         return mems[:N]
 
     def _run_backward_fused(self, qd, arr, ivals_dev, infos_dev,
-                            interpret: bool):
+                            interpret: bool, raw: bool = False):
         """The backward pass of every lane of arr ((N, 5) call rows) as
         fused rounds over one flat state at its real length: no padding of
-        lanes or entries, and no overflow (a mem lives in its own entry)."""
+        lanes or entries, and no overflow (a mem lives in its own entry).
+        Per-lane mem lists, or with raw=True (the rows of the mems at least
+        min_seed_len long, False) as _backward_rows returns them."""
         from mpibwa_tpu_torch.ops import bwd_cuda
 
         N = arr.shape[0]
@@ -235,10 +296,11 @@ class DeviceSeeder:
         lrow_d = self._upload(arr[:, 0].astype(np.int32))
         entries = SF.assemble_entries(ivals_dev, infos_dev, lrow_d,
                                       self._upload(lane_tbl), e)
-        mems, _ = bwd_cuda.run_backward_fused(
+        out = bwd_cuda.run_backward_fused(
             self.dfm, qd[lrow_d.long()], entries, N, arr[:, 3], arr[:, 4],
-            lane_off, interpret=interpret, stats=self.times)
-        return mems
+            lane_off, interpret=interpret, stats=self.times, raw=raw,
+            min_len=self.opt.min_seed_len if raw else 0)
+        return out if raw else out[0]
 
     def _forward1(self, qd, lensd, B):
         """Pass-1 forward (+ pass 3 when max_mem_intv > 0). Returns (ivals,
@@ -379,10 +441,28 @@ class DeviceSeeder:
 
     def _backward_rows(self, qd, call_list, ivals_dev, infos_dev):
         """Backward as rows: ((n, 6) [x0, x1, x2, start, end, lane]
-        min_len-filtered, chronological within lane; overflow bool)."""
-        if len(call_list) == 0:
+        min_len-filtered, chronological within lane; overflow bool). v8 and
+        the pass engine filter and compact the rows on the device; flat goes
+        through per-lane lists."""
+        N = len(call_list)
+        if N == 0:
             return np.zeros((0, 6), np.int32), False
-        fb = np.zeros(1 + max(c[0] for c in call_list), bool)
+        engine = _backward_engine(self.dfm)
+        arr = np.asarray(call_list, dtype=np.int64)
+        if engine in ("pallas", "pallas_interp"):
+            return self._run_backward_fused(qd, arr, ivals_dev, infos_dev,
+                                            engine == "pallas_interp",
+                                            raw=True)
+        if engine == "v8":
+            NLp = _v8_lanes(N)
+            qrows, tables, x0, minv, e = self._lanes(qd, arr, NLp)
+            entries = SF.assemble_entries(ivals_dev, infos_dev, *tables,
+                                          B8.cap_bucket(e, 1024))
+            return B8.run_backward8(
+                self.dfm, qrows, entries, NLp, x0, minv,
+                min_len=self.opt.min_seed_len, raw=True,
+                est_rows=N // 8 + 1024, stats=self.times)
+        fb = np.zeros(1 + int(arr[:, 0].max()), bool)
         mems = self._run_backward_for_calls(qd, call_list, ivals_dev,
                                             infos_dev, fb)
         if fb.any():
@@ -461,25 +541,68 @@ class DeviceSeeder:
             min2[:n2] = srows[:, 2].astype(np.int64) + 1
             q2d = torch.where(self._upload(valid2)[:, None],
                               qd[self._upload(row_idx)], 4).to(torch.uint8)
+            t2 = time.time()
             fwd2 = seeding.forward_pass(self.dfm, q2d, self._upload(lens2),
                                         self._upload(min2), False,
                                         self._upload(starts2))
-            p2 = _pack_fwd1(fwd2).cpu().numpy()
-            ovl = p2[:n2, 0] != 0
-            if ovl.any():
-                fallback[sreads[ovl]] = True
-            l2idx = np.nonzero(p2[:n2, 1] > 0)[0]
-            if len(l2idx):
-                call_list2 = np.stack(
-                    [l2idx, p2[l2idx, 3], p2[l2idx, 4], p2[l2idx, 2],
-                     min2[l2idx]], axis=1)
-                rows2, ov2 = self._backward_rows(q2d, call_list2, fwd2.ivals,
-                                                 fwd2.infos)
-                if ov2:
-                    return None
-                rows2 = self._order_rows(rows2)
-                read2 = (sreads[l2idx[rows2[:, 5]]] if len(rows2)
-                         else np.zeros(0, np.int64))
+            done2 = False
+            if _backward_engine(self.dfm) == "v8" and "e" in self._p2_est:
+                # speculative route: lane tables on the device at a
+                # capacity learned from the batches before, the control
+                # vector pulled after the backward; a capacity miss raises
+                # the backward's overflow and the synchronous route below
+                # redoes pass 2 with the same forward
+                cap = B8.cap_bucket(max(self._p2_est["e"] * 5 // 4, 1024),
+                                    1024)
+                ltbl_d, x0_d, ctl2_d, cap_ov = _p2_tables(fwd2, cap)
+                entries2 = SF.assemble_entries(
+                    fwd2.ivals, fwd2.infos,
+                    torch.arange(B2, dtype=torch.int32, device=q2d.device),
+                    ltbl_d, cap)
+                ctl2_thunk = pull_prefix_async(ctl2_d, 1 + n2)
+                t2 = self._mark("p2_fwd", t2)
+                rows2, ov2 = B8.run_backward8(
+                    self.dfm, q2d, entries2, B2, x0_d,
+                    self._upload(min2.astype(np.int32)),
+                    min_len=opt.min_seed_len, raw=True,
+                    est_rows=B2 // 8 + 1024, extra_ov=cap_ov,
+                    stats=self.times)
+                t2 = self._mark("p2_bwd", t2)
+                ctl2 = ctl2_thunk()
+                self._p2_est["e"] = max(int(ctl2[0]), 64)
+                done2 = not ov2
+                key = "p2_spec" if done2 else "p2_redo"
+                self.times[key] = self.times.get(key, 0) + 1
+                if done2:
+                    ovl = ctl2[1: 1 + n2] != 0
+                    if ovl.any():
+                        fallback[sreads[ovl]] = True
+                    rows2 = self._order_rows(rows2)
+                    read2 = (sreads[rows2[:, 5]] if len(rows2)
+                             else np.zeros(0, np.int64))
+            if not done2:
+                p2 = _pack_fwd1(fwd2).cpu().numpy()
+                t2 = self._mark("p2_fwd", t2)
+                ovl = p2[:n2, 0] != 0
+                if ovl.any():
+                    fallback[sreads[ovl]] = True
+                # lanes whose forward overflowed need no backward: their
+                # reads go to the host engine
+                live2 = (p2[:n2, 1] > 0) & ~ovl
+                self._p2_est["e"] = max(int(p2[:n2, 4][live2].sum()), 64)
+                l2idx = np.nonzero(live2)[0]
+                if len(l2idx):
+                    call_list2 = np.stack(
+                        [l2idx, p2[l2idx, 3], p2[l2idx, 4], p2[l2idx, 2],
+                         min2[l2idx]], axis=1)
+                    rows2, ov2 = self._backward_rows(q2d, call_list2,
+                                                     fwd2.ivals, fwd2.infos)
+                    self._mark("p2_bwd", t2)
+                    if ov2:
+                        return None
+                    rows2 = self._order_rows(rows2)
+                    read2 = (sreads[l2idx[rows2[:, 5]]] if len(rows2)
+                             else np.zeros(0, np.int64))
         t0 = self._mark("pass2", t0)
 
         # ---- pass 3 rows ----

@@ -12,6 +12,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import pytest
 
 READ_LEN = 101
 _COMP = str.maketrans("ACGTN", "TGCAN")
@@ -477,3 +478,28 @@ def pack_bwd_lanes(lanes, multiple: int = 1) -> dict:
             "lane": np.repeat(np.arange(len(lanes)), n).astype(np.int32),
             "E": int(n.sum()), "NL": len(lanes),
             "names": [ln["name"] for ln in lanes]}
+
+
+def release_memory() -> None:
+    """Give a test module's memory back to the system: JAX's compiled
+    programs and the C heap's free pages. A test worker outlives its
+    modules and sits idle holding both while a large test in another
+    worker needs the room."""
+    import ctypes
+    import gc
+
+    import jax
+
+    jax.clear_caches()
+    gc.collect()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        pass  # not glibc: the pages stay with the process
+
+
+@pytest.fixture(scope="module", autouse=True)
+def release_memory_fixture():
+    """release_memory at the end of each test module that imports this."""
+    yield
+    release_memory()

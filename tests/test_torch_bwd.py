@@ -18,10 +18,12 @@ import pytest
 import torch
 
 import _torch_toy as toy
+from _torch_toy import release_memory_fixture  # noqa: F401
 from mpibwa_tpu.core.opts import mem_opt_init
 from mpibwa_tpu.index.format import load_index
 
 torch.set_num_threads(1)  # test workers run in parallel on few cores
+
 
 CPU = torch.device("cpu")
 N_READS = 64
@@ -210,7 +212,7 @@ def test_bwd_round_equals_pallas_kernel_interpret_round_by_round(fms, entry):
         assert rounds <= L + 2
     assert rounds > 5
     info = torch.from_numpy(entry["info"])
-    got = BC.pack_emitted(state, info, lanes.lane_e)
+    got, _ = BC.pull_rows(BC.pack_emitted(state, info, lanes.lane_e), E)
     cols, n = PB.pack_emitted(jst, jnp.asarray(entry["info"].astype(np.int32)),
                               lane_e, E)
     np.testing.assert_array_equal(got, np.asarray(cols[: int(n)]))
@@ -306,6 +308,41 @@ def test_run_backward_fused_equals_flat_engine(fms, entry):
         assert ov.shape == (NL,) and not ov.any()
         assert stats == {"bwd_rounds": int(rounds[0]), "bwd_segments": 1}
     assert sum(map(len, want)) >= NL - 1
+
+
+@pytest.mark.parametrize("min_len", [0, 19])
+def test_run_backward_fused_raw_rows(fms, entry, min_len, monkeypatch):
+    """raw=True: the (n, 6) int32 rows [x0, x1, x2, start, end, lane] of
+    the mems at least min_len long, lane after lane in emission order,
+    i.e. the per-lane lists flattened and filtered; one host read when
+    est_rows covers them, two when it does not. The lists themselves
+    (min_len 0, every mem kept) are pulled with room for every entry."""
+    from mpibwa_tpu_torch.ops import bwd_cuda as BC
+
+    _, tfm = fms
+    NL = entry["NL"]
+    q = torch.from_numpy(entry["q"])
+    ests = []
+    real_pull = BC.pull_rows
+    monkeypatch.setattr(BC, "pull_rows",
+                        lambda p, est: ests.append(est) or real_pull(p, est))
+    mems, _ = BC.run_backward_fused(tfm, q, _entries(entry), NL, entry["x0"],
+                                    entry["minv"], entry["lane_off"])
+    assert ests == [entry["E"]]
+    want = np.array([(x0, x1, x2, info >> 32, info & 0xFFFFFFFF, ln)
+                     for ln, m in enumerate(mems) for x0, x1, x2, info in m
+                     if (info & 0xFFFFFFFF) - (info >> 32) >= min_len],
+                    np.int32).reshape(-1, 6)
+    assert 0 < len(want) < sum(map(len, mems)) or not min_len
+    for est, reads in ((len(want), 1), (len(want) - 1, 2)):
+        stats = {}
+        rows, ov = BC.run_backward_fused(
+            tfm, q, _entries(entry), NL, entry["x0"], entry["minv"],
+            entry["lane_off"], stats=stats, raw=True, min_len=min_len,
+            est_rows=est)
+        assert ov is False and rows.dtype == np.int32
+        np.testing.assert_array_equal(rows, want)
+        assert stats["bwd_segments"] == reads
 
 
 def test_edge_lanes_cover_their_cases(edge, edge_pass):
@@ -504,16 +541,19 @@ def test_warp_model_equals_bwd_pass_on_edge_lanes(fms, edge, edge_pass, S):
 @pytest.mark.parametrize("mode,device,idt,want", [
     ("auto", "cuda", torch.int32, "pallas"),
     ("auto", "cpu", torch.int32, "flat"),
-    ("auto", "cuda", torch.int64, "flat"),
+    ("auto", "cuda", torch.int64, "v8"),
     ("auto", "cpu", torch.int64, "flat"),
     ("flat", "cuda", torch.int32, "flat"),
     ("pallas", "cpu", torch.int32, "pallas"),
     ("pallas_interp", "cuda", torch.int32, "pallas_interp"),
+    ("v8", "cuda", torch.int64, "v8"),
+    ("v8", "cpu", torch.int32, "v8"),
 ])
 def test_backward_engine_choice(monkeypatch, mode, device, idt, want):
-    """MPIBWA_BWD=auto takes the pass kernel on a CUDA int32 index and the
-    flat engine on the CPU and on the int64 path; the other modes mean
-    what they say (a stub index stands for a card)."""
+    """MPIBWA_BWD=auto takes the pass kernel on a CUDA int32 index, v8 on a
+    CUDA int64 index and the flat engine on the CPU; the other modes mean
+    what they say, on any device and position dtype (a stub index stands
+    for a card)."""
     from mpibwa_tpu_torch.pipeline.device_seed import _backward_engine
 
     monkeypatch.setenv("MPIBWA_BWD", mode)
@@ -553,23 +593,35 @@ def test_collect_batch_pallas_equals_every_engine(fms, index, reads,
 
 
 def test_collect_flat_pallas_equals_flat(fms, reads, monkeypatch):
-    """The arrays route (collect_flat) under the fused rounds."""
+    """The arrays route (collect_flat) under the fused rounds: the rows of
+    the mems come from run_backward_fused(raw=True), filtered and
+    compacted on the device, and no per-lane list is built."""
+    from mpibwa_tpu_torch.ops import bwd_cuda
     from mpibwa_tpu_torch.pipeline.device_seed import DeviceSeeder
 
     _, tfm = fms
     out = {}
+    calls, lists = [], []
     for mode in ("flat", "pallas"):
+        if mode == "pallas":
+            real = bwd_cuda.run_backward_fused
+            monkeypatch.setattr(
+                bwd_cuda, "run_backward_fused",
+                lambda *a, **k: calls.append(k) or real(*a, **k))
+            monkeypatch.setattr(DeviceSeeder, "_run_backward_for_calls",
+                                lambda *a: lists.append(a))
         monkeypatch.setenv("MPIBWA_BWD", mode)
         seeder = DeviceSeeder(tfm, mem_opt_init())
         out[mode] = seeder.collect_flat(reads)
         assert ("bwd_rounds" in seeder.times) == (mode == "pallas")
+    assert len(calls) >= 2 and all(k["raw"] for k in calls)
+    assert not lists
     for a, b in zip(out["pallas"], out["flat"]):
         np.testing.assert_array_equal(a, b)
     assert len(out["flat"][0]) > N_READS
 
 
-@pytest.mark.parametrize("mode,exc", [("v8", NotImplementedError),
-                                      ("contig", NotImplementedError),
+@pytest.mark.parametrize("mode,exc", [("contig", NotImplementedError),
                                       ("fastest", ValueError)])
 def test_unported_engines_go_on_raising(fms, reads, monkeypatch, mode, exc):
     from mpibwa_tpu_torch.pipeline.device_seed import DeviceSeeder
@@ -594,8 +646,8 @@ def test_pallas_needs_the_int32_path(index, reads, monkeypatch):
 def test_cli_mem_identical_under_the_knob(toy_paths, tmp_path, monkeypatch,
                                           pe):
     """`cli mem` writes the same bytes under MPIBWA_BWD=auto (on the CPU:
-    the flat engine), flat and pallas (the pass wrapper, here its plain
-    pass); only pallas goes through run_backward_fused."""
+    the flat engine), flat, pallas (the pass wrapper, here its plain
+    pass) and v8; only pallas goes through run_backward_fused."""
     from mpibwa_tpu_torch import cli
     from mpibwa_tpu_torch.ops import bwd_cuda
 
@@ -608,7 +660,7 @@ def test_cli_mem_identical_under_the_knob(toy_paths, tmp_path, monkeypatch,
     args = ["-t", "1", "-o", "out", toy_paths["ref"], toy_paths["r1"]] \
         + ([toy_paths["r2"]] if pe else [])
     sams = {}
-    for mode in ("auto", "flat", "pallas"):
+    for mode in ("auto", "flat", "pallas", "v8"):
         monkeypatch.setenv("MPIBWA_BWD", mode)
         d = tmp_path / mode
         d.mkdir()
@@ -617,7 +669,7 @@ def test_cli_mem_identical_under_the_knob(toy_paths, tmp_path, monkeypatch,
         assert cli.main(["mem"] + args) == 0
         assert (len(calls) > n0) == (mode == "pallas")
         sams[mode] = (d / "out.sam").read_bytes()
-    assert sams["pallas"] == sams["auto"] == sams["flat"]
+    assert len(set(sams.values())) == 1
     assert sams["auto"].count(b"\n") > 200
 
 

@@ -12,8 +12,10 @@ import pytest
 import torch
 
 import _torch_toy as toy
+from _torch_toy import release_memory_fixture  # noqa: F401
 
 torch.set_num_threads(1)  # test workers run in parallel on few cores
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_PAIRS = 300

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import _torch_toy as toy
+from _torch_toy import release_memory_fixture  # noqa: F401
 from mpibwa_tpu.core import extend as X
 from mpibwa_tpu.core.opts import fill_scmat
 from mpibwa_tpu.index.format import NT4_TABLE, load_index
@@ -19,6 +20,7 @@ from mpibwa_tpu_torch.ops import extend_batch as TE
 from mpibwa_tpu_torch.ops.extend_cuda import extend_batch_kernel
 
 torch.set_num_threads(1)  # test workers run in parallel on few cores
+
 
 MAT = fill_scmat(1, 4).reshape(5, 5).astype(np.int32)
 PEN = (6, 1, 6, 1)

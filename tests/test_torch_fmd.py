@@ -8,6 +8,7 @@ import pytest
 import torch
 
 import _torch_toy as toy
+from _torch_toy import release_memory_fixture  # noqa: F401
 from mpibwa_tpu.core.fm import FMIndex
 from mpibwa_tpu.index.format import load_index
 

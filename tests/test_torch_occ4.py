@@ -12,9 +12,11 @@ import pytest
 import torch
 
 import _torch_toy as toy
+from _torch_toy import release_memory_fixture  # noqa: F401
 from mpibwa_tpu.index.format import load_index
 
 torch.set_num_threads(1)  # test workers run in parallel on few cores
+
 
 CPU = torch.device("cpu")
 E = 2048  # two grid blocks of the Pallas kernel

@@ -9,10 +9,12 @@ import pytest
 import torch
 
 import _torch_toy as toy
+from _torch_toy import release_memory_fixture  # noqa: F401
 from mpibwa_tpu.core.opts import mem_opt_init
 from mpibwa_tpu.index.format import load_index
 
 torch.set_num_threads(1)  # test workers run in parallel on few cores
+
 
 N_READS = 200
 
