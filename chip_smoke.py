@@ -61,8 +61,20 @@ Phases, one printed line (or more) each:
      (DeviceSeeder._backward_rows, captured) replayed and timed in its
      parts (lane tables and entries, entry state, pass kernel, the rows'
      compaction and pull) beside the per-lane-list route it replaces
-     (medians of 5, a synchronize around each part).
-Phases 4, 8 and 9 print each kernel's launches by batch size.
+     (medians of 5, a synchronize around each part);
+  12. the record route (the route without the C runtime's chain and
+     finalization: MPIBWA_FINAL=python MPIBWA_CHAIN=python) on phase 6's
+     pairs, PE and SE: SAM byte-identical to phases 6 and 7's port runs on
+     the same files, kernels 1 and 2 launched, the global DP
+     (ops/global_batch.py) and the rescue SW (ops/rescue.py) on CUDA
+     tensors; reads/s, stage seconds, problem counts and the CUDA-event
+     time around those calls, summed;
+  13. `cli launch -n 2 --hosts localhost,localhost mem` on phase 6's pairs
+     with a -K that gives both shards chunks: the merged SAM equals the
+     single-process run's at the same -K (@PG lines aside); both wall
+     times.
+Phases 4, 8 and 9 print each kernel's launches by batch size; every
+default-chaining run (phases 4-11) must have chained in C.
 Every launch count is set to 0 just before a run of the main path and read
 just after. Each kernel's bound is the larger of the bytes its inputs need
 (each byte once, a block row once however many entries read it) over
@@ -73,6 +85,7 @@ kernel results, and last
 
 Usage: python3 chip_smoke.py [--pairs N] [--host-pairs N] [--genome-bp N]
                              [--seed S] [--traced-pairs N]
+(--host-pairs sets the pairs of phases 6, 7, 12 and 13.)
 Exits non-zero without a usable CUDA device, on any mismatch and on any
 error.
 """
@@ -437,8 +450,8 @@ class Spy:
 def run_cli(workdir: str, argv: "list[str]", spy: Spy, ext: str,
             knobs: "dict | None" = None) -> dict:
     """`cli mem` in workdir with -o out; returns its SAM bytes and stats.
-    knobs: MPIBWA_PALLAS / MPIBWA_BWD for this run (unset otherwise: the
-    defaults)."""
+    knobs: environment variables for this run only (MPIBWA_PALLAS and
+    MPIBWA_BWD are unset otherwise: the defaults)."""
     from mpibwa_tpu_torch import cli
 
     os.makedirs(workdir, exist_ok=True)
@@ -455,18 +468,20 @@ def run_cli(workdir: str, argv: "list[str]", spy: Spy, ext: str,
     try:
         rc = cli.main(["mem"] + argv)
         torch.cuda.synchronize()
+        wall = time.time() - t0
+        if rc != 0:
+            raise Failed(f"cli mem exited {rc}")
+        rt = spy.runtimes[-1]
+        al = rt.aligners[0]
+        chained_in_c = al._native_chainer() is not None
     finally:
         os.chdir(cwd)
         for k in knobs or {}:
             os.environ.pop(k, None)
-    wall = time.time() - t0
-    if rc != 0:
-        raise Failed(f"cli mem exited {rc}")
-    rt = spy.runtimes[-1]
-    al = rt.aligners[0]
     with open(os.path.join(workdir, "out.sam"), "rb") as fh:
         sam = fh.read()
     return {"sam": sam, "wall": wall, "align": rt.times["align"],
+            "chained_in_c": chained_in_c,
             "launches": spy.launches, "stats": al.stats,
             "seed_times": al.seeder.times,
             "peak": torch.cuda.max_memory_allocated(),
@@ -484,6 +499,14 @@ def check_sam(sam: bytes, n_reads: int) -> float:
     if mapped < 0.9:
         raise Failed(f"only {mapped:.3f} of the reads mapped")
     return mapped
+
+
+def require_c_chain(tag: str, r: dict) -> None:
+    """A default run must chain in C: no microbatch may have fallen to the
+    record route."""
+    if not r["chained_in_c"] or r["stats"]["cigar_problems"]:
+        raise Failed(f"{tag}: the C chain stage was unavailable (the run "
+                     f"took the record route)")
 
 
 def report_run(tag: str, r: dict, n_reads: int) -> None:
@@ -878,6 +901,152 @@ def phase2f(call, seed_times: dict) -> None:
         f"phase 4's bwd1 over the run {seed_times.get('bwd1', 0.0):.3f} s")
 
 
+# -- phases 12, 13: the record route and the launcher -------------------------
+
+class RecordSpy:
+    """Wraps the record route's device DPs (ops/global_batch.py
+    global_from_coords and traceback_batch, ops/rescue.py striped_sw_u8):
+    counts their calls, keeps the device of what they return and puts a
+    CUDA event pair around each call."""
+
+    def __init__(self):
+        from mpibwa_tpu_torch.ops import global_batch, rescue
+
+        self._mods = (global_batch, rescue)
+        self._real = (global_batch.global_from_coords,
+                      global_batch.traceback_batch, rescue.striped_sw_u8)
+        self.reset()
+
+        def timed(kind, fn):
+            def wrapper(*a, **k):
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = fn(*a, **k)
+                ev[1].record()
+                self.events[kind].append(ev)
+                self.devices.add(out[0].device.type)
+                return out
+            return wrapper
+
+        global_batch.global_from_coords = timed("global", self._real[0])
+        global_batch.traceback_batch = timed("global", self._real[1])
+        rescue.striped_sw_u8 = timed("rescue", self._real[2])
+
+    def reset(self):
+        self.events = {"global": [], "rescue": []}
+        self.devices = set()
+
+    def ms(self, kind: str) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events[kind])
+
+    def close(self):
+        global_batch, rescue = self._mods
+        (global_batch.global_from_coords, global_batch.traceback_batch,
+         rescue.striped_sw_u8) = self._real
+
+
+RECORD_KNOBS = {"MPIBWA_FINAL": "python", "MPIBWA_CHAIN": "python"}
+
+
+def phase12(work, base, paths, spy, want, n_pairs, smi) -> None:
+    """The record route on the first pairs, PE and SE: SAM equal to the
+    default route's (want: {"PE": bytes, "SE": bytes}), kernels 1 and 2
+    launched, the global DP and the rescue SW on the card."""
+    rec = RecordSpy()
+    try:
+        for tag, files, n_reads in (("PE", [paths["h1"], paths["h2"]],
+                                     2 * n_pairs),
+                                    ("SE", [paths["h1"]], n_pairs)):
+            rec.reset()
+            r = run_cli(os.path.join(work, "record_" + tag.lower()),
+                        base + files, spy, "device", RECORD_KNOBS)
+            torch.cuda.synchronize()
+            st = r["stats"]
+            t = {k: round(v, 3) for k, v in st["t"].items()}
+            same = r["sam"] == want[tag]
+            log(f"phase 12 record route {tag} on {smi}: {n_reads} reads in "
+                f"{r['align']:.2f}s aligning ({n_reads / r['align']:.1f} "
+                f"reads/s), {r['wall']:.2f}s wall; stage seconds {t}; "
+                f"kernel launches={r['launches']}; global-DP problems "
+                f"{st['cigar_problems']} in {len(rec.events['global']) // 2} "
+                f"calls, {rec.ms('global'):.3f} ms (global_from_coords + "
+                f"traceback_batch, CUDA events around each call, summed); "
+                f"rescue SW problems {st['rescue_problems']} in "
+                f"{len(rec.events['rescue'])} striped_sw_u8 calls (forward "
+                f"and reverse passes), {rec.ms('rescue'):.3f} ms (CUDA "
+                f"events); the events count the gaps while the host launches "
+                f"the DPs' small ops; outputs on {sorted(rec.devices)}; SAM "
+                f"== the default route's: {same}")
+            if r["chained_in_c"]:
+                raise Failed(f"phase 12 {tag}: the run chained in C")
+            for k in ("extend", "bwd_pass"):
+                if r["launches"][k] <= 0:
+                    raise Failed(f"phase 12 {tag}: no {k} launch")
+            if not rec.events["global"] or (tag == "PE"
+                                            and not rec.events["rescue"]):
+                raise Failed(f"phase 12 {tag}: a device DP never ran")
+            if rec.devices != {"cuda"}:
+                raise Failed(f"phase 12 {tag}: DPs ran on {rec.devices}")
+            if not same:
+                raise Failed(f"phase 12 {tag}: the record route's SAM "
+                             f"differs from the default route's")
+    finally:
+        rec.close()
+
+
+def _no_pg(sam: bytes) -> bytes:
+    """A SAM without its @PG line (it quotes the -o argument)."""
+    return b"".join(ln for ln in sam.splitlines(True)
+                    if not ln.startswith(b"@PG"))
+
+
+def phase13(work, ref, paths, spy, n_pairs) -> None:
+    """`cli launch -n 2` on the first pairs at a -K of about four chunks:
+    the merged SAM equals the single-process run's at the same -K, and the
+    shard files are gone."""
+    from _torch_toy import READ_LEN
+    from mpibwa_tpu_torch import cli
+
+    K = str(max(1000, READ_LEN * n_pairs // 2))
+    argv = ["-t", "1", "-v", "1", "-K", K, "-o", "out", ref, paths["h1"],
+            paths["h2"]]
+    one = run_cli(os.path.join(work, "launch_single"), argv, spy, "device")
+    require_c_chain("phase 13 single process", one)
+    d = os.path.join(work, "launch_n2")
+    os.makedirs(d, exist_ok=True)
+    cwd = os.getcwd()
+    path0 = os.environ.get("PYTHONPATH")
+    # the shards run `python -m mpibwa_tpu_torch.cli` from d
+    os.environ["PYTHONPATH"] = REPO + (os.pathsep + path0 if path0 else "")
+    os.chdir(d)
+    t0 = time.time()
+    try:
+        rc = cli.main(["launch", "-n", "2", "--hosts", "localhost,localhost",
+                       "mem"] + argv)
+    finally:
+        os.chdir(cwd)
+        if path0 is None:
+            os.environ.pop("PYTHONPATH")
+        else:
+            os.environ["PYTHONPATH"] = path0
+    wall = time.time() - t0
+    if rc != 0:
+        raise Failed(f"phase 13: launch exited {rc}")
+    with open(os.path.join(d, "out.sam"), "rb") as fh:
+        merged = fh.read()
+    same = _no_pg(merged) == _no_pg(one["sam"])
+    left = [f for f in os.listdir(d) if ".shard" in f]
+    log(f"phase 13 launch -n 2 --hosts localhost,localhost mem -K {K} on "
+        f"{2 * n_pairs} reads: {wall:.2f}s wall (two shard processes on one "
+        f"GPU, each loading the index, then the merge) against "
+        f"{one['wall']:.2f}s wall in one process ({one['align']:.2f}s "
+        f"aligning); merged SAM == single process (@PG aside): {same}; "
+        f"shard files left: {left}")
+    if not same or left:
+        raise Failed("phase 13: launch -n 2 differs from the single process")
+
+
 def report_sizes(tag: str, r: dict, kernel: str) -> None:
     """Print a kernel's launches over a main-path run by batch size."""
     log(f"{tag} {kernel} over the run: {r['launches'][kernel]} launches; "
@@ -922,6 +1091,7 @@ def knob_run(tag, workdir, argv, spy, knobs, kernels, base_sam, n_reads,
     the absent ones, its SAM equal to base_sam (phase 4's)."""
     r = run_cli(workdir, argv, spy, "device", knobs)
     report_run(tag, r, n_reads)
+    require_c_chain(tag, r)
     same = r["sam"] == base_sam
     log(f"{tag} SAM == phase 4's: {same}")
     for kernel in kernels:
@@ -1010,6 +1180,7 @@ def main() -> int:
     mapped = check_sam(pe["sam"], n_pe)
     launches = {k: pe["launches"][k] for k in ("extend", "bwd_pass")}
     report_run("phase 4 PE device", pe, n_pe)
+    require_c_chain("phase 4", pe)
     log(f"phase 4 mapped share {mapped:.4f}")
     for k in ("extend", "bwd_pass"):
         report_sizes("phase 4", pe, k)
@@ -1022,6 +1193,7 @@ def main() -> int:
     nat = run_cli(os.path.join(work, "pe_native"),
                   base + [paths["r1"], paths["r2"]], spy, "native")
     report_run("phase 5 PE native", nat, n_pe)
+    require_c_chain("phase 5", nat)
     same = nat["sam"] == pe["sam"]
     log(f"phase 5 SAM device == native: {same}")
     if not same:
@@ -1030,6 +1202,8 @@ def main() -> int:
     # phase 6: the host spec engine on the first pairs
     hargv = base + [paths["h1"], paths["h2"]]
     port = run_cli(os.path.join(work, "pe_host_port"), hargv, spy, "device")
+    require_c_chain("phase 6", port)
+    default_sam = {"PE": port["sam"]}
     t0 = time.time()
     host = host_engine_sam(os.path.join(work, "pe_host"), ref, paths["h1"],
                            paths["h2"], hargv)
@@ -1044,11 +1218,14 @@ def main() -> int:
                  "device")
     check_sam(se["sam"], args.pairs)
     report_run("phase 7 SE device", se, args.pairs)
+    require_c_chain("phase 7", se)
     for k in ("extend", "bwd_pass"):
         if se["launches"][k] <= 0:
             raise Failed(f"the SE main path launched no {k} kernel")
     hargv = base + [paths["h1"]]
     port = run_cli(os.path.join(work, "se_host_port"), hargv, spy, "device")
+    require_c_chain("phase 7", port)
+    default_sam["SE"] = port["sam"]
     t0 = time.time()
     host = host_engine_sam(os.path.join(work, "se_host"), ref, paths["h1"],
                            None, hargv)
@@ -1101,6 +1278,9 @@ def main() -> int:
         f"default against both of its neighbours: {rate['default']:.1f} / "
         f"{rate['v8']:.1f} / {rate['default again']:.1f} PE reads/s "
         f"(default, v8, default again)")
+    # phases 12 and 13: the record route and the launcher on the first pairs
+    phase12(work, base, paths, spy, default_sam, args.host_pairs, smi)
+    phase13(work, ref, paths, spy, args.host_pairs)
     # phase 10: the default run and phase 8's again on the first pairs,
     # traced; every traced SAM equals the first one (and phase 4's when
     # the input is the whole of it)

@@ -4,6 +4,8 @@ Usage:
   python -m mpibwa_tpu_torch.cli mem [options] -o OUT <ref> <R1.fastq> [R2.fastq]
   python -m mpibwa_tpu_torch.cli membychr [options] -o OUT_DIR <ref> <R1> [R2]
   python -m mpibwa_tpu_torch.cli index|idx|merge|mergebychr ...
+  python -m mpibwa_tpu_torch.cli launch -n N [--keep]
+      [--hosts H1,H2|--hostfile F] [--rsh CMD] {mem|membychr} [options] ...
 
 ``mem`` and ``membychr`` align on a torch device: ``cuda`` unless
 MPIBWA_TORCH_DEVICE names another (``cpu`` runs every kernel's plain
@@ -16,10 +18,14 @@ as in mpibwa_tpu. On a CUDA device with the int32 position path each
 backward SMEM pass runs as one launch of the CUDA kernel of
 ops/bwd_cuda.py, with the int64 path the v8 engine (MPIBWA_BWD=auto);
 MPIBWA_BWD=flat|pallas|v8 picks an engine (see
-pipeline/device_seed.py). The
-package shares nothing with mpibwa_tpu by import: the option parser and
-the ``index``, ``idx``, ``merge`` and ``mergebychr`` commands are its own
-copies. ``launch`` is not ported yet (ROADMAP.md).
+pipeline/device_seed.py). Without the C runtime (no C compiler,
+MPIBWA_NATIVE=0, or MPIBWA_FINAL=python) the records are finalized by the
+Python route of core/, with the CIGARs and the mate rescue batched on the
+device (pipeline/device_align.py); MPIBWA_CHAIN=python chains in Python.
+``launch`` starts N shard processes of this module and merges their
+outputs; local shards run on the same device. The package shares nothing
+with mpibwa_tpu by import: the option parser and the ``index``, ``idx``,
+``merge``, ``mergebychr`` and ``launch`` commands are its own copies.
 """
 
 from __future__ import annotations
@@ -452,12 +458,135 @@ def main_merge_bychr(argv):
     return 0
 
 
+def main_launch(argv):
+    """One-command distribution (the `mpirun -n N mpiBWA` analog):
+
+      cli launch -n N [--keep] [--hosts H1,H2|--hostfile F] [--rsh CMD]
+                 {mem|membychr} [options] -o OUT REF R1 [R2]
+
+    Spawns N shard processes (MPIBWA_SHARD=i, MPIBWA_NSHARDS=N), waits,
+    merges their outputs deterministically, and removes the shard files.
+    With --hosts/--hostfile, shards round-robin over the hosts via --rsh
+    (default ssh), like `mpirun -hostfile` (mainParallel.c:517-519); the
+    inputs and OUT path must live on a shared filesystem, exactly as the
+    reference requires for its MPI-IO output. "localhost" entries spawn
+    local process groups (no ssh), which is also how the integration test
+    exercises this path."""
+    import os
+    import shlex
+    import subprocess
+
+    keep = False
+    n = None
+    hosts = []
+    rsh = "ssh"
+    i = 0
+    while i < len(argv) and argv[i] in ("-n", "--keep", "--hosts",
+                                        "--hostfile", "--rsh"):
+        if argv[i] == "--keep":
+            keep = True
+            i += 1
+            continue
+        if i + 1 >= len(argv):
+            break
+        if argv[i] == "-n":
+            n = int(argv[i + 1])
+        elif argv[i] == "--hosts":
+            hosts = [h for h in argv[i + 1].split(",") if h]
+        elif argv[i] == "--hostfile":
+            with open(argv[i + 1]) as hf:
+                hosts = [ln.split()[0] for ln in hf
+                         if ln.strip() and not ln.startswith("#")]
+        elif argv[i] == "--rsh":
+            rsh = argv[i + 1]
+        i += 2
+    rest = argv[i:]
+    if n is None and hosts:
+        n = len(hosts)
+    if n is None or n < 1 or not rest or rest[0] not in ("mem", "membychr"):
+        print("usage: launch -n N [--keep] [--hosts H1,H2|--hostfile F] "
+              "[--rsh CMD] {mem|membychr} [options] -o OUT REF R1 [R2]",
+              file=sys.stderr)
+        return 1
+    sub, sub_args = rest[0], rest[1:]
+    # -f is main_mem's alias for -o (mainParallel.c getopt surface)
+    out_flag = "-o" if "-o" in sub_args else "-f"
+    try:
+        out = sub_args[sub_args.index(out_flag) + 1]
+    except (ValueError, IndexError):
+        print("[E::launch] -o OUT is required", file=sys.stderr)
+        return 1
+    write_format = 2
+    if "-b" in sub_args:
+        write_format = 1
+    elif "-g" in sub_args:
+        write_format = 0
+    by_chr = sub == "membychr"
+
+    if n == 1:
+        return main_mem(sub_args, by_chr=by_chr)
+
+    procs = []
+    for k in range(n):
+        env = dict(os.environ, MPIBWA_SHARD=str(k), MPIBWA_NSHARDS=str(n))
+        args = list(sub_args)
+        if not by_chr:
+            # per-shard output files; merged into OUT afterwards
+            args[args.index(out_flag) + 1] = f"{out}.shard{k}"
+        cmd = [sys.executable, "-m", "mpibwa_tpu_torch.cli", sub] + args
+        host = hosts[k % len(hosts)] if hosts else "localhost"
+        if host in ("localhost", "127.0.0.1"):
+            procs.append(subprocess.Popen(cmd, env=env))
+        else:
+            # remote shard: env rides the command line; the MPIBWA_* knobs
+            # (MPIBWA_TORCH_DEVICE among them) and the device-selection
+            # variables of this process propagate (mpirun forwards the
+            # launcher environment to every rank; a remote shard that
+            # silently picked another device would be a correctness
+            # hazard, not just slow). python resolves to the remote PATH.
+            envs = [f"MPIBWA_SHARD={k}", f"MPIBWA_NSHARDS={n}"]
+            envs += [f"{key}={shlex.quote(v)}"
+                     for key, v in os.environ.items()
+                     if (key.startswith("MPIBWA_")
+                         or key in ("PYTHONPATH", "CUDA_VISIBLE_DEVICES"))
+                     and key not in ("MPIBWA_SHARD", "MPIBWA_NSHARDS")]
+            rcmd = (f"cd {shlex.quote(os.getcwd())} && env " + " ".join(envs)
+                    + " python3 -m mpibwa_tpu_torch.cli " + sub + " "
+                    + " ".join(shlex.quote(a) for a in args))
+            procs.append(subprocess.Popen(shlex.split(rsh) + [host, rcmd]))
+    rc = 0
+    for k, p in enumerate(procs):
+        r = p.wait()
+        if r != 0:
+            print(f"[E::launch] shard {k} exited with {r}", file=sys.stderr)
+            rc = r
+    if rc != 0:
+        return rc
+
+    ext = {2: ".sam", 1: ".bam", 0: ".gz"}[write_format]
+    if by_chr:
+        shard_dirs = [f"{out}.shard{k}" for k in range(n)]
+        rc = main_merge_bychr([out] + shard_dirs)
+        if rc == 0 and not keep:
+            import shutil
+
+            for d in shard_dirs:
+                shutil.rmtree(d)
+    else:
+        shard_paths = [f"{out}.shard{k}{ext}" for k in range(n)]
+        rc = main_merge([out + ext] + shard_paths)
+        if rc == 0 and not keep:
+            for p_ in shard_paths:
+                os.remove(p_)
+                os.remove(p_ + ".manifest.json")
+    return rc
+
 
 def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     if not argv:
         print("usage: mpibwa_tpu_torch.cli {mem|membychr|index|idx|merge|"
-              "mergebychr} ...", file=sys.stderr)
+              "mergebychr|launch} ...", file=sys.stderr)
         return 1
     cmd, rest = argv[0], argv[1:]
     if cmd == "mem":
@@ -469,9 +598,7 @@ def main(argv=None):
     if cmd in host_cmds:
         return host_cmds[cmd](rest)
     if cmd == "launch":
-        print("launch is not ported to mpibwa_tpu_torch yet; run shards "
-              "with MPIBWA_SHARD/MPIBWA_NSHARDS and `merge`", file=sys.stderr)
-        return 1
+        return main_launch(rest)
     print(f"unsupported command: {cmd}", file=sys.stderr)
     return 1
 

@@ -8,8 +8,10 @@ F is a max-plus prefix scan over the row's M. It is the reference the
 CUDA kernel (ops/extend_cuda.py, csrc/extend.cu) is checked against, and
 what the kernel's wrapper runs for tensors on the CPU.
 
-``extend_from_coords`` builds the query and target windows on the device
-from read rows and the packed reference, then calls the kernel wrapper.
+``windows_from_coords`` builds the query and target windows on the device
+from read rows and the packed reference (the global DP of
+ops/global_batch.py takes its problems from it too);
+``extend_from_coords`` calls the kernel wrapper on them.
 """
 
 from __future__ import annotations
@@ -21,14 +23,16 @@ import torch
 NEG = -(1 << 28)
 
 
-def _maxscan_decay(t: torch.Tensor, decay: int) -> torch.Tensor:
+def _maxscan_decay(t: torch.Tensor, decay: int, neg: int = NEG
+                   ) -> torch.Tensor:
     """out[..., j] = max_{k<=j} (t[..., k] - (j-k)*decay) along the last
-    axis, in log2(n) shift steps."""
+    axis, in log2(n) shift steps; positions before the row start read
+    ``neg``."""
     n = t.shape[-1]
     out = t
     shift = 1
     while shift < n:
-        fill = torch.full(out.shape[:-1] + (shift,), NEG, dtype=out.dtype,
+        fill = torch.full(out.shape[:-1] + (shift,), neg, dtype=out.dtype,
                           device=out.device)
         shifted = torch.cat([fill, out[..., :-shift]], dim=-1)
         out = torch.maximum(out, shifted - shift * decay)
@@ -203,24 +207,17 @@ def extend_batch(qs: torch.Tensor, ts: torch.Tensor, qlens: torch.Tensor,
     return ExtendOut(maxv, max_j + 1, max_i + 1, max_ie + 1, gscore, max_off)
 
 
-def extend_from_coords(fm, qd: torch.Tensor, coords: torch.Tensor, Q: int,
-                       T: int, params: torch.Tensor, o_del: int, e_del: int,
-                       o_ins: int, e_ins: int, mat: torch.Tensor
-                       ) -> ExtendOut:
-    """Build extension problems on the device from coordinates and run the
-    DP through the kernel wrapper.
+def windows_from_coords(fm, qd: torch.Tensor, coords: torch.Tensor, Q: int,
+                        T: int):
+    """(qs (B, Q), ts (B, T) uint8 padded with 4, q_len, t_len int32) of
+    the problems at coords, gathered on the device from the read batch qd
+    (NR, L) uint8 and fm's packed reference.
 
-    qd: (NR, L) uint8 read batch on the device; coords: (B, 6) int64 columns
-    (row, q_off, q_len, q_rev, r_start, t_len): the query is
-    qd[row, q_off : q_off+q_len] (reversed if q_rev) and the target is t_len
-    reference bases from doubled-coordinate r_start, walking down from
-    r_start-1 when q_rev (left extension mirrors both sequences,
-    bwamem.c:716-722). params: (B, 4) int32 (w, end_bonus, zdrop, h0).
-    Only coordinates cross the host link; sequences are gathered from the
-    device-resident read batch and packed reference."""
-    # imported here: extend_cuda imports this module for the plain version
-    from mpibwa_tpu_torch.ops.extend_cuda import extend_batch_kernel
-
+    coords: (B, 6) int64 columns (row, q_off, q_len, q_rev, r_start,
+    t_len): the query is qd[row, q_off : q_off+q_len] (reversed if q_rev)
+    and the target is t_len reference bases from doubled-coordinate
+    r_start, walking down from r_start-1 when q_rev (left extension
+    mirrors both sequences, bwamem.c:716-722). r_start must stay int64."""
     dev = qd.device
     NR, L = qd.shape
     row = coords[:, 0].long().clamp(0, NR - 1)
@@ -243,7 +240,22 @@ def extend_from_coords(fm, qd: torch.Tensor, coords: torch.Tensor, Q: int,
     ts = torch.where(tvalid,
                      fm.ref_base(tpos.clamp(0, 2 * fm.l_pac - 1)),
                      4).to(torch.uint8)
-    return extend_batch_kernel(qs, ts, q_len.contiguous(),
-                               t_len.contiguous(),
+    return qs, ts, q_len.contiguous(), t_len.contiguous()
+
+
+def extend_from_coords(fm, qd: torch.Tensor, coords: torch.Tensor, Q: int,
+                       T: int, params: torch.Tensor, o_del: int, e_del: int,
+                       o_ins: int, e_ins: int, mat: torch.Tensor
+                       ) -> ExtendOut:
+    """Build extension problems on the device from coordinates (as
+    windows_from_coords) and run the DP through the kernel wrapper.
+    params: (B, 4) int32 (w, end_bonus, zdrop, h0). Only coordinates
+    cross the host link; sequences are gathered from the device-resident
+    read batch and packed reference."""
+    # imported here: extend_cuda imports this module for the plain version
+    from mpibwa_tpu_torch.ops.extend_cuda import extend_batch_kernel
+
+    qs, ts, q_len, t_len = windows_from_coords(fm, qd, coords, Q, T)
+    return extend_batch_kernel(qs, ts, q_len, t_len,
                                params.to(torch.int32).contiguous(), mat,
                                o_del, e_del, o_ins, e_ins)

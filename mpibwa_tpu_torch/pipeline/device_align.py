@@ -11,10 +11,17 @@ Counterpart of mpibwa_tpu/pipeline/device_align.py. Flow per microbatch:
 
 A backward overflow in seeding sends the microbatch to the list route:
 the exact collect_batch, Python chaining with every extension batched on
-the device (_precompute_extensions), then C finalization. Both routes
-need the C runtime (mpibwa_tpu_torch.native.get_lib()); without it the port
-raises, where mpibwa_tpu takes a Python record route that is not ported
-yet (ROADMAP.md).
+the device (_precompute_extensions), then C finalization.
+
+Without the C runtime (no C compiler, MPIBWA_NATIVE=0 or
+MPIBWA_FINAL=python) every microbatch takes the list route and the chunk
+is finalized by the Python record route of core/: the first-round global
+alignment of every region (its CIGAR) is batched on the device
+(precompute_cigars, ops/global_batch.py), and for PE every mate-rescue SW
+the pairing can ask for (precompute_rescue, ops/rescue.py); core/cigar
+and core/pair serve them from caches and run the scalar kernels on a
+miss. MPIBWA_CHAIN=python keeps C finalization but chains in Python (the
+list route).
 """
 
 from __future__ import annotations
@@ -37,17 +44,14 @@ from mpibwa_tpu_torch.core.extend import ksw_extend2
 from mpibwa_tpu_torch.core.fm import FMIndex
 from mpibwa_tpu_torch.core.pipeline import BSeq, mem_align1_core
 from mpibwa_tpu_torch.core.refseq import RefSeq
-from mpibwa_tpu_torch.core.region import cal_max_gap, mem_sort_dedup_patch
+from mpibwa_tpu_torch.core.region import (cal_max_gap, mem_mark_primary_se,
+                                          mem_reorder_primary5,
+                                          mem_sort_dedup_patch)
+from mpibwa_tpu_torch.core.sam import mem_reg2sam
 from mpibwa_tpu_torch.pipeline.native_final import NativeChainer
 from mpibwa_tpu_torch.ops.extend_batch import extend_from_coords
 from mpibwa_tpu_torch.ops.fmd import DeviceFMIndex
 from mpibwa_tpu_torch.pipeline.device_seed import DeviceSeeder, _pad_batch
-
-_NO_C_RUNTIME = ("mpibwa_tpu_torch needs the C runtime "
-                 "(mpibwa_tpu_torch.native.get_lib() returned None: a C "
-                 "compiler is required, and MPIBWA_NATIVE / MPIBWA_FINAL "
-                 "must not disable it); the Python record route is not "
-                 "ported")
 
 
 def _round_up(x: int, buckets) -> int:
@@ -121,9 +125,11 @@ class DeviceAligner:
         self.dfm = dfm
         self.device = dfm.device
         self.seeder = DeviceSeeder(self.dfm, opt)
-        # overflow_batches: microbatches that took the list route
+        # overflow_batches: microbatches that took the list route;
+        # cigar_problems / rescue_problems: the record route's device DPs
         self.stats = {"fallback_reads": 0, "ext_problems": 0, "ext_misses": 0,
-                      "overflow_batches": 0, "t": {}}
+                      "overflow_batches": 0, "cigar_problems": 0,
+                      "rescue_problems": 0, "t": {}}
         self.mat55d = torch.from_numpy(
             opt.mat.reshape(5, 5).astype(np.int32)).to(self.device)
         self._qd = None  # device read batch of the list route's microbatch
@@ -131,19 +137,21 @@ class DeviceAligner:
         self._chainer = None
 
     def _native_finalizer(self):
-        """The C finalization runtime; raises when it is unavailable."""
+        """The C finalization runtime, or None (no C runtime, or
+        MPIBWA_FINAL=python): then the Python record route."""
         if self._finalizer is None:
             from mpibwa_tpu_torch.pipeline.native_final import NativeFinalizer
 
             self._finalizer = NativeFinalizer(self.refs, self.opt)
-        if not self._finalizer.available:
-            raise RuntimeError(_NO_C_RUNTIME)
-        return self._finalizer
+        return self._finalizer if self._finalizer.available else None
 
     def _native_chainer(self):
-        """The C chain stage, or None when MPIBWA_CHAIN selects Python
-        chaining (then every microbatch takes the list route)."""
+        """The C chain stage, or None without the C runtime or when
+        MPIBWA_CHAIN selects Python chaining (then every microbatch takes
+        the list route)."""
         fin = self._native_finalizer()
+        if fin is None:
+            return None
         if self._chainer is None:
             self._chainer = _RangeChainer(fin)
         return self._chainer if self._chainer.available else None
@@ -541,14 +549,26 @@ class DeviceAligner:
                              h0)] = right_r1[i]
         self.stats["ext_problems"] += len(left_jobs) + len(right_jobs)
 
-    def align_regs(self, seqs: List[BSeq]) -> List[List[R.AlnReg]]:
+    def align_regs(self, seqs: List[BSeq], cigar_cache: "dict | None" = None
+                   ) -> List[List[R.AlnReg]]:
         """Alignment regions for a batch through the list route, in
         microbatches padded like align_arrays' (per-read regions do not
-        depend on the grouping)."""
+        depend on the grouping). With cigar_cache, each microbatch's
+        first-round global alignments are added to it (precompute_cigars
+        on the microbatch's own device rows)."""
         out = []
         for sub, padded in self._microbatches(seqs):
             self.stats["overflow_batches"] += 1
-            out.extend(self._align_regs_inner(padded)[: len(sub)])
+            regs = self._align_regs_inner(padded)
+            if cigar_cache is not None:
+                t0 = time.time()
+                cc = precompute_cigars(self.opt, self.refs,
+                                       [s.seq for s in padded], regs,
+                                       self.dfm, self._qd, self.mat55d)
+                self.stats["cigar_problems"] += len(cc)
+                cigar_cache.update(cc)
+                self._add_time("cigar", t0)
+            out.extend(regs[: len(sub)])
         return out
 
     def _align_regs_inner(self, seqs: List[BSeq]) -> List[List[R.AlnReg]]:
@@ -633,21 +653,228 @@ class DeviceAligner:
     def process_seqs(self, seqs: List[BSeq], n_processed: int = 0,
                      pes0=None, rg_id: str = "") -> None:
         """Align a chunk and write each read's SAM text to ``s.sam``."""
-        fin = self._native_finalizer()
+        from mpibwa_tpu_torch.core.cigar import set_cigar_cache
+        from mpibwa_tpu_torch.core.pair import (mem_pestat, mem_sam_pe,
+                                                set_sw_cache)
+
         if self._process_seqs_native(seqs, n_processed, pes0, rg_id):
             return
-        regs_all = self.align_regs(seqs)
+        fin = self._native_finalizer()
+        cigar_cache = {} if fin is None else None
+        regs_all = self.align_regs(seqs, cigar_cache)
         t0 = time.time()
-        opt = self.opt
-        if opt.flag & O.MEM_F_PE:
-            from mpibwa_tpu_torch.core.pair import mem_pestat
-
-            pes = pes0 if pes0 is not None else mem_pestat(
-                opt, self.refs.l_pac, regs_all)
-            ok = fin.finalize(seqs, regs_all, True, n_processed >> 1, rg_id,
-                              pes)
-        else:
-            ok = fin.finalize(seqs, regs_all, False, n_processed, rg_id)
-        if not ok:
-            raise RuntimeError("C finalization failed; " + _NO_C_RUNTIME)
+        opt, refs = self.opt, self.refs
+        n = len(seqs)
+        try:
+            set_cigar_cache(cigar_cache)
+            if opt.flag & O.MEM_F_PE:
+                pes = pes0 if pes0 is not None else mem_pestat(
+                    opt, refs.l_pac, regs_all)
+                if fin is None or not fin.finalize(
+                        seqs, regs_all, True, n_processed >> 1, rg_id, pes):
+                    t1 = time.time()
+                    sw_cache = precompute_rescue(opt, refs, self.dfm, seqs,
+                                                 regs_all, pes)
+                    self.stats["rescue_problems"] += len(sw_cache)
+                    self._add_time("rescue", t1)
+                    t0 += time.time() - t1  # emit leaves the rescue out
+                    set_sw_cache(sw_cache)
+                    for i in range(n >> 1):
+                        mem_sam_pe(opt, refs, pes, (n_processed >> 1) + i,
+                                   seqs[i << 1: (i << 1) + 2],
+                                   regs_all[i << 1: (i << 1) + 2], rg_id)
+            elif fin is None or not fin.finalize(seqs, regs_all, False,
+                                                 n_processed, rg_id):
+                for i, s in enumerate(seqs):
+                    regs = regs_all[i]
+                    mem_mark_primary_se(opt, regs, n_processed + i)
+                    if opt.flag & O.MEM_F_PRIMARY5:
+                        mem_reorder_primary5(opt.T, regs)
+                    s.sam = mem_reg2sam(opt, refs, s, regs, 0, None, rg_id)
+        finally:
+            set_cigar_cache(None)
+            set_sw_cache(None)
         self._add_time("emit", t0)
+
+
+def prep_global_problem(opt, refs, query_full, ar):
+    """The inputs of mem_reg2aln's first gen_cigar call (bwa.c:120-170):
+    (qseq, rseq, w, rev) after the reversal, or None where the scalar
+    path's shortcut or reject branches apply."""
+    from mpibwa_tpu_torch.core.sam import infer_bw
+
+    qb, qe, rb, re = ar.qb, ar.qe, ar.rb, ar.re
+    if ar.rb < 0 or ar.re < 0:
+        return None
+    tmp = infer_bw(qe - qb, re - rb, ar.truesc, opt.a, opt.o_del, opt.e_del)
+    w2 = max(infer_bw(qe - qb, re - rb, ar.truesc, opt.a, opt.o_ins,
+                      opt.e_ins), tmp)
+    if w2 > opt.w:
+        w2 = min(w2, ar.w)
+    w2 = min(w2, opt.w << 2)
+    l_query = qe - qb
+    l_pac = refs.l_pac
+    if l_query <= 0 or rb >= re or (rb < l_pac and re > l_pac):
+        return None
+    rseq = refs.get_seq(rb, re)
+    rlen = len(rseq)
+    if re - rb != rlen:
+        return None
+    query = np.ascontiguousarray(query_full[qb:qe])
+    if rb >= l_pac:
+        query = query[::-1].copy()
+        rseq = rseq[::-1].copy()
+    if l_query == rlen and w2 == 0:
+        return None  # the no-DP shortcut; the scalar path is trivial
+    max_ins = int((((l_query + 1) >> 1) * int(opt.mat[0]) - opt.o_ins)
+                  / opt.e_ins + 1.0)
+    max_del = int((((l_query + 1) >> 1) * int(opt.mat[0]) - opt.o_del)
+                  / opt.e_del + 1.0)
+    max_gap = max(max_ins, max_del, 1)
+    w = (max_gap + abs(rlen - l_query) + 1) >> 1
+    w = min(w, w2)
+    w = max(w, abs(rlen - l_query) + 3)
+    return query, rseq, w, rb >= l_pac
+
+
+CIGAR_Q_BUCKETS = (64, 128, 192, 256, 512)
+CIGAR_T_BUCKETS = (64, 128, 192, 256, 512, 768)
+
+
+def precompute_cigars(opt, refs, qs_per_read, regs_per_read, dfm, qd,
+                      mat55d):
+    """The first-round global alignment of every region, batched on the
+    device by (Q, T) bucket over the read batch qd (the microbatch's own
+    device rows); returns the cigar cache of core.cigar.gen_cigar,
+    {(query, rseq, w): (score, cigar)}. Problems beyond the largest bucket
+    are left out: gen_cigar runs the scalar kernel for them."""
+    from mpibwa_tpu_torch.ops.global_batch import (cigar_from_ops,
+                                                   global_from_coords,
+                                                   traceback_batch)
+
+    uniq = {}  # identical problems run once
+    for b, (query_full, regs) in enumerate(zip(qs_per_read, regs_per_read)):
+        for ar in regs:
+            prep = prep_global_problem(opt, refs, query_full, ar)
+            if prep is None:
+                continue
+            q, t, w, rev = prep
+            coords = ((b, ar.qb, ar.qe - ar.qb, 1, ar.re, ar.re - ar.rb)
+                      if rev else
+                      (b, ar.qb, ar.qe - ar.qb, 0, ar.rb, ar.re - ar.rb))
+            uniq.setdefault((q.tobytes(), t.tobytes(), w), (q, t, coords))
+    groups = {}
+    for key, (q, t, coords) in uniq.items():
+        if len(q) > CIGAR_Q_BUCKETS[-1] or len(t) > CIGAR_T_BUCKETS[-1]:
+            continue
+        QT = (_round_up(len(q), CIGAR_Q_BUCKETS),
+              _round_up(len(t), CIGAR_T_BUCKETS))
+        groups.setdefault(QT, []).append((key, coords))
+    cache = {}
+    dev = qd.device
+    for (Q, T), items in groups.items():
+        B = len(items)
+        Bp = 1 << max(4, (B - 1).bit_length())
+        cds = np.zeros((Bp, 6), np.int64)  # int64 r_start (doubled coords)
+        cds[:, 2] = 1  # dummy qlen
+        ws = np.full(Bp, 3, np.int32)
+        for i, (key, coords) in enumerate(items):
+            cds[i] = coords
+            ws[i] = key[2]
+        ws_d = torch.from_numpy(ws).to(dev)
+        out = global_from_coords(dfm, qd, torch.from_numpy(cds).to(dev), Q,
+                                 T, ws_d, opt.o_del, opt.e_del, opt.o_ins,
+                                 opt.e_ins, mat55d)
+        # the traceback on the device: (B, T+Q) op rows cross, not z
+        ops, i_rem, k_rem = traceback_batch(
+            out.z, torch.from_numpy(cds[:, 2]).to(dev),
+            torch.from_numpy(cds[:, 5]).to(dev), ws_d)
+        small = torch.stack([out.score.long(), i_rem.long(),
+                             k_rem.long()]).cpu().numpy()  # one pull
+        ops_np = ops.cpu().numpy()
+        for i, (key, _) in enumerate(items):
+            cache[key] = (int(small[0, i]), cigar_from_ops(
+                ops_np[i], int(small[1, i]), int(small[2, i])))
+    return cache
+
+
+def precompute_rescue(opt, refs, dfm, seqs, regs_all, pes):
+    """Every mate-rescue SW problem of a PE chunk, batched on the device.
+
+    Enumerates exactly the ksw_align2 calls mem_sam_pe can make
+    (bwamem_pair.c:265-275: the candidate regions times the four
+    orientations whose insert stats did not fail); core.pair serves them
+    from the returned cache {(seq, ref, xtra): KswR-shaped tuple}, and a
+    miss (i16 mode, clamped-window edge cases) runs the scalar kernel."""
+    from mpibwa_tpu_torch.core.extend import KSW_XBYTE, KSW_XSTART, KSW_XSUBO
+    from mpibwa_tpu_torch.ops.rescue import ksw_align2_batch
+
+    l_pac = refs.l_pac
+    xtra = KSW_XSUBO | KSW_XSTART | KSW_XBYTE | (opt.min_seed_len * opt.a)
+    seen = set()
+    jobs = []  # (key, qcoords, tcoords)
+    maxq = maxt = 1
+    for pi in range(len(seqs) >> 1):
+        for end in (0, 1):
+            a_list = regs_all[(pi << 1) | end]
+            if not a_list:
+                continue
+            mate_row = (pi << 1) | (1 - end)
+            ms = seqs[mate_row].seq
+            l_ms = len(ms)
+            if l_ms * opt.a >= 250:
+                continue  # i16 mode: the scalar kernel
+            thr = a_list[0].score - opt.pen_unpaired
+            nb = 0
+            for reg in a_list:
+                if reg.score < thr:
+                    continue
+                if nb >= opt.max_matesw:
+                    break
+                nb += 1
+                for r in range(4):
+                    if pes[r].failed:
+                        continue
+                    is_rev = (r >> 1) != (r & 1)
+                    is_larger = not (r >> 1)
+                    if not is_rev:
+                        rb = (reg.rb + pes[r].low if is_larger
+                              else reg.rb - pes[r].high)
+                        re = (reg.rb + pes[r].high if is_larger
+                              else reg.rb - pes[r].low) + l_ms
+                    else:
+                        rb = (reg.rb + pes[r].low if is_larger
+                              else reg.rb - pes[r].high) - l_ms
+                        re = (reg.rb + pes[r].high if is_larger
+                              else reg.rb - pes[r].low)
+                    rb = max(rb, 0)
+                    re = min(re, l_pac << 1)
+                    if rb >= re:
+                        continue
+                    ref, rid, rb2, re2 = refs.fetch_seq(rb, (rb + re) >> 1, re)
+                    if not (reg.rid == rid and re2 - rb2 >= opt.min_seed_len):
+                        continue
+                    if is_rev:
+                        seq = np.where(ms < 4, 3 - ms, 4)[::-1].astype(
+                            np.uint8)
+                        qc = (mate_row, l_ms - 1, -1, 1, l_ms)
+                    else:
+                        seq = ms
+                        qc = (mate_row, 0, 1, 0, l_ms)
+                    key = (seq.tobytes(), ref.tobytes(), xtra)
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                    jobs.append((key, qc, (rb2, 1, re2 - rb2)))
+                    maxq = max(maxq, l_ms)
+                    maxt = max(maxt, re2 - rb2)
+    if not jobs:
+        return {}
+    N = ((maxq + 15) >> 4) << 4
+    Tcap = 256
+    while Tcap < maxt:
+        Tcap <<= 1
+    qd = torch.from_numpy(_pad_batch([s.seq for s in seqs])[0]).to(dfm.device)
+    res = ksw_align2_batch(dfm, qd, [{"qcoords": qc, "tcoords": tc}
+                                     for _, qc, tc in jobs], opt, N, Tcap)
+    return {key: r for (key, _, _), r in zip(jobs, res)}

@@ -1,6 +1,7 @@
 """End to end: `mpibwa_tpu_torch.cli mem` writes the same bytes as
 `mpibwa_tpu.cli mem` on the toy genome (SE, PE, both MPIBWA_EXT values,
-fixmate, BGZF, by-chromosome output and the backward-overflow route),
+fixmate, BGZF, BAM, trimmed PE, -t 2, by-chromosome output and the
+backward-overflow route),
 with the port on the CPU. Also: the port never imports jax, and asking
 for CUDA without a card raises."""
 
@@ -8,6 +9,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -38,7 +40,21 @@ def data(tmp_path_factory):
             "r1": _head(paths["r1"], str(d / "a1.fq"), N_PAIRS),
             "r2": _head(paths["r2"], str(d / "a2.fq"), N_PAIRS),
             "o1": _head(paths["r1"], str(d / "o1.fq"), 64),
-            "o2": _head(paths["r2"], str(d / "o2.fq"), 64)}
+            "o2": _head(paths["r2"], str(d / "o2.fq"), 64),
+            "trim2": _trimmed(str(d / "o2.fq"), str(d / "trim2.fq"))}
+
+
+def _trimmed(src: str, dst: str) -> str:
+    """src with each read cut to a seeded length of 60-101 bp (the files'
+    sizes then differ: the runtime's trimmed-PE chunking)."""
+    rng = np.random.default_rng(5)
+    lines = open(src).read().splitlines()
+    with open(dst, "w") as g:
+        for i in range(0, len(lines), 4):
+            n = int(rng.integers(60, 102))
+            g.write(f"{lines[i]}\n{lines[i + 1][:n]}\n+\n"
+                    f"{lines[i + 3][:n]}\n")
+    return dst
 
 
 def _outputs(path):
@@ -86,6 +102,23 @@ def test_mem_output_flags_identical(data, tmp_path, monkeypatch, flag, out):
     args = [flag, "-t", "1", data["ref"], data["r1"], data["r2"]]
     want, got = _run_both(tmp_path, monkeypatch, args, out)
     assert got == want
+
+
+@pytest.mark.parametrize("case", ["trimmed_pe", "bam", "t2"])
+def test_more_flags_identical(data, tmp_path, monkeypatch, case):
+    """Trimmed PE (R2 cut, several chunks), BAM output (-b) and two
+    workers (-t 2, which also sets the default -K) on both CLIs."""
+    monkeypatch.delenv("MPIBWA_EXT", raising=False)
+    args, out = {
+        "trimmed_pe": (["-t", "1", "-K", "4000", data["ref"], data["o1"],
+                        data["trim2"]], "out.sam"),
+        "bam": (["-b", "-t", "1", data["ref"], data["o1"], data["o2"]],
+                "out.bam"),
+        "t2": (["-t", "2", data["ref"], data["o1"], data["o2"]], "out.sam"),
+    }[case]
+    want, got = _run_both(tmp_path, monkeypatch, args, out)
+    assert got == want
+    assert len(got[out]) > 1000
 
 
 def test_membychr_identical(data, tmp_path, monkeypatch):

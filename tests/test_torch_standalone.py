@@ -1,7 +1,7 @@
 """The port stands on its own: no module of mpibwa_tpu_torch (nor
 chip_smoke.py) imports jax or mpibwa_tpu, its CLI runs index, idx, mem,
-membychr, merge and mergebychr in a process that loads neither, and its
-``index`` writes the same files as mpibwa_tpu's."""
+membychr, merge, mergebychr and launch in a process that loads neither,
+and its ``index`` writes the same files as mpibwa_tpu's."""
 
 import ast
 import os
@@ -81,6 +81,11 @@ os.environ.update(MPIBWA_SHARD="0", MPIBWA_NSHARDS="1")
 run(["merge", "merged.sam", "part0.sam", "part1.sam"])
 run(["mergebychr", "bychr_merged", "bychr.shard0", "bychr.shard1"])
 run(["membychr"] + K + ["-o", "bychr_whole", ref, r1, r2])
+L2 = ["launch", "-n", "2", "--hosts", "localhost,localhost"]
+run(L2 + ["mem"] + K + ["-o", "launched", ref, r1, r2])
+run(L2 + ["membychr"] + K + ["-o", "bychr_launched", ref, r1, r2])
+run(["launch", "-n", "1", "mem"] + K + ["-o", "launched1", ref, r1, r2])
+run(["launch", "-n", "2", "--keep", "mem"] + K + ["-o", "kept", ref, r1, r2])
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "mpibwa_tpu"))
 assert not loaded, loaded
@@ -133,6 +138,34 @@ def test_sharded_membychr_merges_to_the_whole_run(standalone_run):
     for n in names:
         assert _no_pg((d / "bychr_merged" / n).read_bytes()) == \
             _no_pg((d / "bychr_whole" / n).read_bytes()), n
+
+
+def test_launch_merges_to_the_whole_run(standalone_run):
+    """`launch -n 2 --hosts localhost,localhost mem` writes the whole run's
+    SAM and removes its shard files; `-n 1` runs in the process; --keep
+    keeps the shard files."""
+    d, res = standalone_run
+    assert res.returncode == 0, res.stderr[-4000:]
+    whole = _no_pg((d / "whole.sam").read_bytes())
+    for name in ("launched.sam", "launched1.sam", "kept.sam"):
+        assert _no_pg((d / name).read_bytes()) == whole, name
+    for k in (0, 1):
+        assert not (d / f"launched.shard{k}.sam").exists()
+        assert not (d / f"launched.shard{k}.sam.manifest.json").exists()
+        assert (d / f"kept.shard{k}.sam").stat().st_size > 0
+        assert (d / f"kept.shard{k}.sam.manifest.json").exists()
+    assert not (d / "launched1.shard0.sam").exists()
+
+
+def test_launch_membychr_merges_to_the_whole_run(standalone_run):
+    d, res = standalone_run
+    assert res.returncode == 0, res.stderr[-4000:]
+    names = sorted(os.listdir(d / "bychr_whole"))
+    assert sorted(os.listdir(d / "bychr_launched")) == names
+    for n in names:
+        assert _no_pg((d / "bychr_launched" / n).read_bytes()) == \
+            _no_pg((d / "bychr_whole" / n).read_bytes()), n
+    assert not any((d / f"bychr_launched.shard{k}").exists() for k in (0, 1))
 
 
 def test_index_files_equal_the_jax_package(standalone_run, tmp_path):
