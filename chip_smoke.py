@@ -27,11 +27,13 @@ Phases, one printed line (or more) each:
   8. phase 4's run with MPIBWA_BWD=flat MPIBWA_PALLAS=1 (the flat backward
      engine, every round extending through the fused occ4 kernel): SAM
      byte-identical to phase 4's;
-  9. phase 4's run with MPIBWA_BWD=flat, the default, MPIBWA_BWD=v8 and
-     the default again, in turns after phase 8: every SAM byte-identical
-     to phase 4's; reads/s and the backward stages of each, whether the
-     default is slower than flat against both of its neighbours and
-     whether v8 beats the default against both of its neighbours;
+  9. phase 4's run with MPIBWA_BWD=flat, MPIBWA_BWD=contig, the default,
+     MPIBWA_BWD=v8 and the default again, in turns after phase 8: every
+     SAM byte-identical to phase 4's; reads/s and the backward stages of
+     each, whether the default is slower than flat against both of its
+     neighbours, whether contig beats both of its neighbours (flat and
+     the default) and whether v8 beats the default against both of its
+     neighbours;
   11. the v8 turn of phase 9 (PE, MPIBWA_EXT=device, phase 4's input):
      its SAM byte-identical to phase 4's, its stages (fwd1, bwd1, pass2
      with p2_fwd and p2_bwd), host reads of the backward, pass-2 runs on
@@ -49,14 +51,17 @@ Phases, one printed line (or more) each:
   2d. the pass kernel against the plain pass over the entry state captured
      from phase 4's first backward call (all seven state arrays, the round
      count and the emitted mems equal) and over the edge lanes of
-     tests/_torch_toy.bwd_edge_lanes at every register instance; a whole
-     pass timed (median of 5 after a warm-up) and its bound over the pass;
+     tests/_torch_toy.bwd_edge_lanes at every register instance, with
+     their query rows as they are and padded to 16,384 bp (past 12,288 bp
+     the kernel reads each row in place, Lp = 0); a whole pass timed
+     (median of 5 after a warm-up) and its bound over the pass;
   2e. the int64 position path: the phase 3 index loaded again with
      force_wide=True, collect_flat on the first 16,384 reads of phase 4's
-     input under v8 (== v8 on the int32 index in all three arrays) and
-     under flat (== v8 on (x0, x2, info), the offsets and the fallback
-     flags), v8 and flat on it timed in turns (medians of 3 after a
-     warm-up) with peak device memory;
+     input under v8 (== v8 on the int32 index in all three arrays), under
+     flat and under contig (each == v8 on (x0, x2, info), the offsets and
+     the fallback flags), v8, flat and contig on it timed in turns
+     (medians of 3 after a warm-up) with peak device memory and the
+     kernels' launches;
   2f. the default's pass-1 backward of phase 4's first microbatch
      (DeviceSeeder._backward_rows, captured) replayed and timed in its
      parts (lane tables and entries, entry state, pass kernel, the rows'
@@ -72,9 +77,20 @@ Phases, one printed line (or more) each:
   13. `cli launch -n 2 --hosts localhost,localhost mem` on phase 6's pairs
      with a -K that gives both shards chunks: the merged SAM equals the
      single-process run's at the same -K (@PG lines aside); both wall
-     times.
+     times;
+  14a. --long-reads (20) ONT-like SE reads of 700-2,500 bp off the genome
+     (tests/_torch_toy.long_reads, no N) under -x ont2d, 14b. as many FR
+     pairs of 400-700 bp reads (insert N(1,500, 150)) with bwa's defaults:
+     each SAM byte-identical to the host spec engine's; the share of reads
+     the device seeder hands to the host engine, reads/s, seconds a read;
+  14c. phase 7's first 16,383 SE reads and, last, a 66,000-bp read off the
+     genome (0.1% substitutions, no N), MPIBWA_EXT=device: the int64 call
+     words, every pass launch reading its query row in place, kernels 1
+     and 2 launched; the short reads' lines equal a run on them alone, the
+     wide read's the host spec engine's; fwd1 and its steps, the stages,
+     launches and peak device memory.
 Phases 4, 8 and 9 print each kernel's launches by batch size; every
-default-chaining run (phases 4-11) must have chained in C.
+default-chaining run (phases 4-11, 14) must have chained in C.
 Every launch count is set to 0 just before a run of the main path and read
 just after. Each kernel's bound is the larger of the bytes its inputs need
 (each byte once, a block row once however many entries read it) over
@@ -84,7 +100,7 @@ kernel results, and last
 {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Usage: python3 chip_smoke.py [--pairs N] [--host-pairs N] [--genome-bp N]
-                             [--seed S] [--traced-pairs N]
+                             [--seed S] [--traced-pairs N] [--long-reads N]
 (--host-pairs sets the pairs of phases 6, 7, 12 and 13.)
 Exits non-zero without a usable CUDA device, on any mismatch and on any
 error.
@@ -93,6 +109,7 @@ error.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -328,6 +345,7 @@ class Spy:
     def __init__(self):
         from mpibwa_tpu_torch.ops import bwd_cuda, extend_cuda, occ4_cuda
         from mpibwa_tpu_torch.parallel.runtime import Runtime
+        from mpibwa_tpu_torch.pipeline import device_seed
         from mpibwa_tpu_torch.pipeline.device_seed import DeviceSeeder
 
         self.runtimes = []
@@ -336,6 +354,8 @@ class Spy:
         self.bwd_call = None
         self.rows_call = None
         self.sizes = {name: [] for name in KERNELS}
+        self.pass_widths = []  # query-row width of every pass launch
+        self.word_dtypes = []  # dtype of every pass-1 call-word tensor
         self._lock = threading.Lock()
         self._mods = (extend_cuda, occ4_cuda, bwd_cuda)
         self._real = extend_cuda.extend_batch_kernel
@@ -343,9 +363,8 @@ class Spy:
         self._real_bwd = bwd_cuda.run_backward_fused
         self._real_pass = bwd_cuda.bwd_pass_kernel
         self._real_rows = DeviceSeeder._backward_rows
-        self.wrappers = {"extend": extend_cuda.extend_batch_kernel,
-                         "occ4_extend": occ4_cuda.extend_kernel,
-                         "bwd_pass": bwd_cuda.bwd_pass_kernel}
+        self._real_words = device_seed.pack_call_words
+        self.wrappers = self.kernel_wrappers()
         self._rt_init = Runtime.__init__
         spy = self
 
@@ -400,8 +419,16 @@ class Spy:
             return spy._real_rows(seeder, qd, call_list, ivals, infos)
 
         def size_pass(fm, lanes, state, rounds=None):
+            with spy._lock:
+                spy.pass_widths.append(lanes.qrows.shape[1])
             return sized("bwd_pass", spy._real_pass, state.shape[1], fm,
                          lanes, state, rounds)
+
+        def words(*a):
+            out = spy._real_words(*a)
+            with spy._lock:
+                spy.word_dtypes.append(out.dtype)
+            return out
 
         Runtime.__init__ = rt_init
         extend_cuda.extend_batch_kernel = capture
@@ -409,6 +436,16 @@ class Spy:
         bwd_cuda.run_backward_fused = capture_bwd
         bwd_cuda.bwd_pass_kernel = size_pass
         DeviceSeeder._backward_rows = capture_rows
+        device_seed.pack_call_words = words
+
+    @staticmethod
+    def kernel_wrappers() -> dict:
+        """Each kernel's wrapper, which counts its launches."""
+        from mpibwa_tpu_torch.ops import bwd_cuda, extend_cuda, occ4_cuda
+
+        return {"extend": extend_cuda.extend_batch_kernel,
+                "occ4_extend": occ4_cuda.extend_kernel,
+                "bwd_pass": bwd_cuda.bwd_pass_kernel}
 
     @property
     def launches(self) -> dict:
@@ -429,10 +466,12 @@ class Spy:
 
     def close(self):
         from mpibwa_tpu_torch.parallel.runtime import Runtime
+        from mpibwa_tpu_torch.pipeline import device_seed
         from mpibwa_tpu_torch.pipeline.device_seed import DeviceSeeder
 
         Runtime.__init__ = self._rt_init
         DeviceSeeder._backward_rows = self._real_rows
+        device_seed.pack_call_words = self._real_words
         extend_cuda, occ4_cuda, bwd_cuda = self._mods
         extend_cuda.extend_batch_kernel = self._real
         occ4_cuda.extend_kernel = self._real_occ4
@@ -445,6 +484,8 @@ class Spy:
         for sizes in self.sizes.values():
             sizes.clear()
         self.runtimes.clear()
+        self.pass_widths.clear()
+        self.word_dtypes.clear()
 
 
 def run_cli(workdir: str, argv: "list[str]", spy: Spy, ext: str,
@@ -525,21 +566,37 @@ def report_run(tag: str, r: dict, n_reads: int) -> None:
     log(f"{tag} stage seconds: aligner {t}; seeder {seed}")
 
 
-def host_engine_sam(workdir, ref, r1, r2, argv) -> bytes:
-    """The host spec engine (core/) on the same input, with the header the
-    CLI writes for argv."""
+def cli_opt(preset=None):
+    """The options `cli mem -t 1 [-x preset]` builds."""
     from mpibwa_tpu_torch.core import opts as O
-    from mpibwa_tpu_torch.core.opts import mem_opt_init, rescale_by_a
+
+    opt = O.mem_opt_init()
+    opt.n_threads = 1
+    if preset:
+        O.apply_preset(opt, preset, set())
+    else:
+        O.rescale_by_a(opt, set(), preset=None)
+    opt.mat = O.fill_scmat(opt.a, opt.b)
+    opt.round_float_fields()
+    return opt
+
+
+@functools.lru_cache(maxsize=1)
+def host_index(ref: str):
+    """The index files of ref, loaded once for every host-engine run."""
     from mpibwa_tpu_torch.index.format import load_index
+
+    return load_index(ref)
+
+
+def host_engine_sam(workdir, ref, r1, r2, argv, preset=None) -> bytes:
+    """The host spec engine (core/) on the same input, with the header the
+    CLI writes for argv (`-x preset` among them where given)."""
     from mpibwa_tpu_torch.io import headers as hdr
     from mpibwa_tpu_torch.parallel.runtime import Runtime
 
-    opt = mem_opt_init()
-    opt.n_threads = 1
-    rescale_by_a(opt, set(), preset=None)
-    opt.mat = O.fill_scmat(opt.a, opt.b)
-    opt.round_float_fields()
-    rt = Runtime(load_index(ref), opt, use_device=False,
+    opt = cli_opt(preset)
+    rt = Runtime(host_index(ref), opt, use_device=False,
                  fixed_chunk_size=opt.chunk_size * opt.n_threads,
                  verbose=False)
     os.makedirs(workdir, exist_ok=True)
@@ -708,21 +765,35 @@ def phase2d(fm, call, toy, seed: int) -> dict:
         raise Failed("pass kernel and plain pass emit different mems")
 
     pk = toy.pack_bwd_lanes(toy.bwd_edge_lanes(fm, seed))
-    el, es = BC.entry_state(
-        torch.from_numpy(pk["q"]).to(dev),
-        tuple(torch.from_numpy(pk[k]).to(dev)
-              for k in ("ik", "info", "lane", "live")),
-        pk["x0"], pk["minv"], pk["lane_off"])
-    e_rounds = torch.zeros(1, dtype=torch.int32, device=dev)
-    e_want = BC.bwd_pass(fm, el, es.clone(), e_rounds)
-    for max_len in (1, 33, 65, 129):  # slot counts 1, 2, 4, 8
-        err, _ = check_pass(fm, el, es, e_want, int(e_rounds[0]), max_len)
-        worst = max(worst, err)
-        log(f"phase 2d pass kernel, edge lanes of tests/_torch_toy.py "
-            f"({pk['NL']} lanes, E={pk['E']}, longest {el.max_len}, "
-            f"{int(e_rounds[0])} rounds) at {BC.slot_count(max_len)} "
-            f"slot(s): max_abs_err={err} over all 7 state arrays and the "
-            f"round count")
+    entries = tuple(torch.from_numpy(pk[k]).to(dev)
+                    for k in ("ik", "info", "lane", "live"))
+    e_want0 = None
+    # the rows as they are, then padded to WIDE_ROW bp: past 12,288 bp the
+    # kernel reads each lane's row in place (Lp = 0) instead of staging it
+    # in shared memory
+    for width in (pk["q"].shape[1], WIDE_ROW):
+        q = np.pad(pk["q"], ((0, 0), (0, width - pk["q"].shape[1])),
+                   constant_values=4)
+        el, es = BC.entry_state(torch.from_numpy(q).to(dev), entries,
+                                pk["x0"], pk["minv"], pk["lane_off"])
+        e_rounds = torch.zeros(1, dtype=torch.int32, device=dev)
+        e_want = BC.bwd_pass(fm, el, es.clone(), e_rounds)
+        if e_want0 is None:
+            e_want0 = (e_want, int(e_rounds[0]))
+        elif (max_err(e_want, e_want0[0]) or int(e_rounds[0]) != e_want0[1]):
+            raise Failed("the plain pass changed with padded query rows")
+        where = ("Lp = 0, read in place"
+                 if 4 * ((width + 15) & ~15) > 48 * 1024
+                 else "staged in shared memory")
+        for max_len in (1, 33, 65, 129):  # slot counts 1, 2, 4, 8
+            err, _ = check_pass(fm, el, es, e_want, int(e_rounds[0]),
+                                max_len)
+            worst = max(worst, err)
+            log(f"phase 2d pass kernel, edge lanes of tests/_torch_toy.py "
+                f"({pk['NL']} lanes, E={pk['E']}, longest {el.max_len}, "
+                f"{int(e_rounds[0])} rounds, query rows of {width} bp: "
+                f"{where}) at {BC.slot_count(max_len)} slot(s): max_abs_err={err} "
+                f"over all 7 state arrays and the round count")
 
     reps = 5
     copies = [state0.clone() for _ in range(reps + 1)]
@@ -758,26 +829,28 @@ def phase2d(fm, call, toy, seed: int) -> dict:
 
 
 WIDE_READS = 16_384  # phase 2e: the first microbatch of phase 4's input
+WIDE_ROW = 16_384  # phase 2d: query rows padded past the kernel's 12,288
 
 
 def phase2e(ref: str, fm32, reads) -> None:
     """The int64 position path on the phase 3 genome: collect_flat under v8
-    == v8 on the int32 index (all three arrays), flat == v8 on (x0, x2,
-    info), the offsets and the fallback flags; v8 and flat timed in turns
-    (medians of 3 after a warm-up) with peak device memory."""
+    == v8 on the int32 index (all three arrays), flat and contig == v8 on
+    (x0, x2, info), the offsets and the fallback flags; v8, flat and contig
+    timed in turns (medians of 3 after a warm-up) with peak device
+    memory."""
     from mpibwa_tpu_torch.core.opts import mem_opt_init
-    from mpibwa_tpu_torch.index.format import load_index
     from mpibwa_tpu_torch.ops.fmd import DeviceFMIndex
     from mpibwa_tpu_torch.pipeline.device_seed import DeviceSeeder
 
     t0 = time.time()
-    wide = DeviceFMIndex(load_index(ref), fm32.device, force_wide=True)
+    wide = DeviceFMIndex(host_index(ref), fm32.device, force_wide=True)
     torch.cuda.synchronize()
     log(f"phase 2e int64 index (force_wide) of the phase 3 genome on the "
         f"card in {time.time() - t0:.1f} s")
     qs = [s.seq for s in reads]
     seeders = {k: DeviceSeeder(fm, mem_opt_init()) for k, fm in
-               (("v8 int32", fm32), ("v8", wide), ("flat", wide))}
+               (("v8 int32", fm32), ("v8", wide), ("flat", wide),
+                ("contig", wide))}
 
     def run(key):
         os.environ["MPIBWA_BWD"] = key.split()[0]
@@ -793,20 +866,27 @@ def phase2e(ref: str, fm32, reads) -> None:
             raise Failed(f"phase 2e: collect_flat under {key} overflowed")
         return out, dt
 
+    wrappers = Spy.kernel_wrappers()
+    n0 = {k: fn.launches for k, fn in wrappers.items()}
     out = {k: run(k)[0] for k in seeders}  # the warm-up
     same32 = all(np.array_equal(a, b)
                  for a, b in zip(out["v8"], out["v8 int32"]))
-    a, b = out["v8"], out["flat"]
-    same_flat = (np.array_equal(a[0][:, [0, 2, 3]], b[0][:, [0, 2, 3]])
-                 and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2]))
+    a = out["v8"]
+
+    def meets_v8(b):
+        return (np.array_equal(a[0][:, [0, 2, 3]], b[0][:, [0, 2, 3]])
+                and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2]))
+
+    same_flat, same_contig = meets_v8(out["flat"]), meets_v8(out["contig"])
     log(f"phase 2e {len(qs)} reads, {len(a[0])} seed rows, "
         f"{int(a[2].sum())} reads to the host engine: v8 int64 == v8 int32 "
         f"(all three arrays): {same32}; flat int64 == v8 int64 on (x0, x2, "
-        f"info), offsets and fallback: {same_flat}")
-    if not (same32 and same_flat):
+        f"info), offsets and fallback: {same_flat}; contig int64 == v8 int64 "
+        f"on the same: {same_contig}")
+    if not (same32 and same_flat and same_contig):
         raise Failed("phase 2e: the int64 path disagrees")
-    times = {"v8": [], "flat": []}
-    peak = {"v8": 0, "flat": 0}
+    times = {"v8": [], "flat": [], "contig": []}
+    peak = {k: 0 for k in times}
     for _ in range(3):
         for key in times:
             torch.cuda.reset_peak_memory_stats()
@@ -815,11 +895,18 @@ def phase2e(ref: str, fm32, reads) -> None:
             times[key].append(dt)
             if not all(np.array_equal(x, y) for x, y in zip(got, out[key])):
                 raise Failed(f"phase 2e: {key} changed between runs")
-    v8, fl = times["v8"], times["flat"]  # turns: v8, flat, v8, flat, ...
-    beats = all(v8[i] < fl[i] and (i == 0 or v8[i] < fl[i - 1])
+    launched = {k: fn.launches - n0[k] for k, fn in wrappers.items()}
+    log(f"phase 2e kernel launches over its collect_flat runs: {launched}")
+    v8, fl = times["v8"], times["flat"]  # turns: v8, flat, contig, v8, ...
+    beats = all(v8[i] < fl[i] and (i == 0 or v8[i] < times["contig"][i - 1])
                 for i in range(3))
+    ct = times["contig"]
+    c_beats = all(ct[i] < fl[i] and (i == 2 or ct[i] < v8[i + 1])
+                  for i in range(3))
     log(f"phase 2e int64: v8 {'beats' if beats else 'does not beat'} flat "
-        f"against both of its neighbours in every turn")
+        f"in every turn, and its other neighbour (contig) too; contig "
+        f"{'beats' if c_beats else 'does not beat'} both of its neighbours "
+        f"(flat before, v8 after) in every turn")
     for key in times:
         st = {k: round(v, 3) if isinstance(v, float) else v
               for k, v in seeders[key].times.items()}
@@ -1047,6 +1134,166 @@ def phase13(work, ref, paths, spy, n_pairs) -> None:
         raise Failed("phase 13: launch -n 2 differs from the single process")
 
 
+# -- phase 14: long and wide reads ---------------------------------------------
+
+def phase14_long(work, ref, codes, spy, n, seed, smi) -> None:
+    """14a: n ONT-like SE reads of 700-2,500 bp (tests/_torch_toy.long_reads:
+    5% substitutions, a 3-bp deletion, a 4-bp insertion, every other one
+    reverse-complemented, no N) under -x ont2d; 14b: n FR pairs of 400-700
+    bp reads, insert N(1,500, 150), with bwa's defaults. Each SAM equal to
+    the host spec engine's on the same file; the share of reads the device
+    seeder hands to the host engine, reads/s and seconds a read."""
+    import _torch_toy as toy
+
+    rng = np.random.default_rng(seed)
+    ont = toy.long_reads(codes, rng, [int(v) for v in
+                                      rng.integers(700, 2501, n)], 0.0)
+    r1, r2 = toy.long_pairs(codes, rng, [int(v) for v in
+                                         rng.integers(400, 701, 2 * n)])
+    files = {}
+    for key, reads in (("ont", ont), ("l1", r1), ("l2", r2)):
+        files[key] = os.path.join(work, f"long_{key}.fq")
+        name = "ont" if key == "ont" else "pair"  # mates share a name
+        write_reads(files[key], [(f"{name}{i}", toy.to_bases(q))
+                                 for i, q in enumerate(reads)])
+    for tag, opts, fq, preset, n_reads in (
+            ("phase 14a ONT-like SE -x ont2d", ["-x", "ont2d"],
+             [files["ont"]], "ont2d", n),
+            ("phase 14b long PE", [], [files["l1"], files["l2"]], None,
+             2 * n)):
+        argv = opts + ["-t", "1", "-o", "out", ref] + fq
+        d = os.path.join(work, tag.split()[1])
+        r = run_cli(d, argv, spy, "device")
+        report_run(tag, r, n_reads)
+        require_c_chain(tag, r)
+        t0 = time.time()
+        host = host_engine_sam(d + "_host", ref, fq[0], fq[1] if len(fq) > 1
+                               else None, argv, preset)
+        t_host = time.time() - t0
+        same = host == r["sam"]
+        fb = r["stats"]["fallback_reads"]
+        bp = sum(len(q) for q in (ont if preset else r1 + r2))
+        log(f"{tag} on {smi}: {n_reads} reads, {bp} bp; {fb} of them to the "
+            f"host engine (fallback share {fb / n_reads:.3f}); "
+            f"{n_reads / r['align']:.2f} reads/s, "
+            f"{r['align'] / n_reads:.3f} s a read aligning; the host spec "
+            f"engine {t_host:.1f} s ({t_host / n_reads:.3f} s a read); SAM "
+            f"== host spec engine: {same}")
+        if not same:
+            raise Failed(f"{tag}: SAM differs from the host spec engine's")
+
+
+WIDE_BP = 66_000  # phase 14c: the wide read, past the 16-bit call words
+WIDE_BATCH = 16_384  # phase 14c: one microbatch, the wide read last
+
+
+def phase14_wide(work, ref, codes, short_reads, spy, seed, smi) -> None:
+    """14c: phase 7's first WIDE_BATCH - 1 SE reads and, last, a WIDE_BP
+    read off the genome (0.1% substitutions, no N) under MPIBWA_EXT=device:
+    every short read's lines equal a run on the short reads alone, the
+    wide read's equal the host spec engine's at its read id; the call words
+    are int64 and every pass launch reads its query row in place."""
+    import _torch_toy as toy
+    from mpibwa_tpu_torch.core.fm import FMIndex
+    from mpibwa_tpu_torch.core.pipeline import process_seqs
+    from mpibwa_tpu_torch.core.refseq import RefSeq
+    from mpibwa_tpu_torch.io.fastq import read_fastq
+    from mpibwa_tpu_torch.ops import seeding
+    from mpibwa_tpu_torch.ops.fmd import DeviceFMIndex
+    from mpibwa_tpu_torch.pipeline.device_align import DeviceAligner
+
+    rng = np.random.default_rng(seed)
+    while True:
+        start = int(rng.integers(0, len(codes) - WIDE_BP))
+        if not (codes[start: start + WIDE_BP] >= 4).any():
+            break
+    wide = toy.substituted(rng, codes[start: start + WIDE_BP], 0.001)
+    short = list(short_reads[: WIDE_BATCH - 1])
+    fq_s = os.path.join(work, "wide_short.fq")
+    fq_w = os.path.join(work, "wide.fq")
+    write_reads(fq_s, short)
+    write_reads(fq_w, short + [("wide", toy.to_bases(wide))])
+
+    # forward steps of pass 1 (one extend1_fwd a step) and the extension
+    # callback's time, summed over the C sessions' threads
+    count = {"on": False, "steps": 0, "ext_rows_s": 0.0}
+    real = (DeviceFMIndex.extend1_fwd, seeding.forward_p3,
+            DeviceAligner._ext_rows)
+
+    def ext1(fm, *a):
+        count["steps"] += count["on"]
+        return real[0](fm, *a)
+
+    def p3(*a):
+        count["on"] = True
+        try:
+            return real[1](*a)
+        finally:
+            count["on"] = False
+
+    def ext_rows(al, *a, **k):
+        t = time.time()
+        try:
+            return real[2](al, *a, **k)
+        finally:
+            count["ext_rows_s"] += time.time() - t
+
+    DeviceFMIndex.extend1_fwd, seeding.forward_p3 = ext1, p3
+    DeviceAligner._ext_rows = ext_rows
+    try:
+        r = run_cli(os.path.join(work, "wide"), ["-t", "1", "-o", "out",
+                                                 ref, fq_w], spy, "device")
+    finally:
+        (DeviceFMIndex.extend1_fwd, seeding.forward_p3,
+         DeviceAligner._ext_rows) = real
+    widths, dtypes = list(spy.pass_widths), set(spy.word_dtypes)
+    n_short = len(short)
+    report_run("phase 14c wide batch", r, n_short + 1)
+    require_c_chain("phase 14c", r)
+    st = r["seed_times"]
+    log(f"phase 14c on {smi}: {n_short} reads of phase 7 and one "
+        f"{WIDE_BP}-bp read last; call words {sorted(map(str, dtypes))}; "
+        f"{len(widths)} pass launches, query rows {sorted(set(widths))} bp "
+        f"(Lp = 0, read in place, past 12,288: "
+        f"{all(w > 12_288 for w in widths)}); fwd1 "
+        f"{st.get('fwd1', 0.0):.3f} s over {count['steps']} steps "
+        f"({st.get('fwd1', 0.0) / max(count['steps'], 1) * 1e3:.3f} ms a "
+        f"step); _ext_rows {count['ext_rows_s']:.3f} s summed over the C "
+        f"sessions' threads; kernel launches {r['launches']}; peak device "
+        f"memory {r['peak'] / 2**30:.3f} GiB")
+    for k in ("extend", "bwd_pass"):
+        if r["launches"][k] <= 0:
+            raise Failed(f"phase 14c: no {k} launch")
+    if dtypes != {torch.int64} or not widths or min(widths) <= 12_288:
+        raise Failed("phase 14c: the batch did not take the int64 call "
+                     "words and the in-place query rows")
+
+    s = run_cli(os.path.join(work, "wide_short"), ["-t", "1", "-o", "out",
+                                                   ref, fq_s], spy, "device")
+    report_run("phase 14c the short reads alone", s, n_short)
+
+    def body(sam):
+        return [ln for ln in sam.splitlines() if not ln.startswith(b"@")]
+
+    lines = body(r["sam"])
+    mine = [ln for ln in lines if ln.startswith(b"wide\t")]
+    same_short = [ln for ln in lines if not ln.startswith(b"wide\t")] \
+        == body(s["sam"])
+    t0 = time.time()
+    idx = host_index(ref)
+    seqs = read_fastq(fq_w)[-1:]
+    process_seqs(cli_opt(), FMIndex.from_index(idx), RefSeq(idx), seqs,
+                 n_processed=n_short)
+    t_host = time.time() - t0
+    same_wide = seqs[0].sam.encode().splitlines() == mine
+    log(f"phase 14c short reads' lines == the short reads alone: "
+        f"{same_short}; the wide read's {len(mine)} line(s) == the host spec "
+        f"engine's at read id {n_short}: {same_wide} (host engine "
+        f"{t_host:.1f} s)")
+    if not (same_short and same_wide and mine):
+        raise Failed("phase 14c: the wide batch's SAM differs")
+
+
 def report_sizes(tag: str, r: dict, kernel: str) -> None:
     """Print a kernel's launches over a main-path run by batch size."""
     log(f"{tag} {kernel} over the run: {r['launches'][kernel]} launches; "
@@ -1129,6 +1376,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--traced-pairs", type=int, default=5_000,
                     help="pairs of the traced runs of phase 10")
+    ap.add_argument("--long-reads", type=int, default=20,
+                    help="reads of phase 14a and pairs of phase 14b")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -1163,6 +1412,7 @@ def main() -> int:
     work = os.path.join(REPO, "build", "smoke")
     r1l, r2l = _torch_toy.simulate_pairs({"chr1": chrom}, args.pairs,
                                          seed=args.seed + 1)
+    codes = _torch_toy.to_codes(chrom)  # phase 14's reads
     del chrom
     paths = {}
     for tag, reads in (("r1", r1l), ("r2", r2l), ("h1", r1l[: args.host_pairs]),
@@ -1243,11 +1493,16 @@ def main() -> int:
                   ["occ4_extend"], pe["sam"], n_pe, absent=["bwd_pass"])
     launches["occ4_extend"] = r8["launches"]["occ4_extend"]
     report_sizes("phase 8", r8, "occ4_extend")
-    # phase 9: flat, the default, v8 (phase 11), the default, in turns
-    # after phase 8
+    # phase 9: flat, contig, the default, v8 (phase 11), the default, in
+    # turns after phase 8
     r9f = knob_run("phase 9 PE MPIBWA_BWD=flat", os.path.join(work, "pe_flat"),
                    pe_argv, spy, {"MPIBWA_BWD": "flat"}, ["extend"],
                    pe["sam"], n_pe, absent=["bwd_pass"])
+    # the contig engine (opt-in, no kernel of its own)
+    r9c = knob_run("phase 9 PE MPIBWA_BWD=contig",
+                   os.path.join(work, "pe_contig"), pe_argv, spy,
+                   {"MPIBWA_BWD": "contig"}, ["extend"], pe["sam"], n_pe,
+                   absent=["bwd_pass"])
     r9d = knob_run("phase 9 PE default", os.path.join(work, "pe_default"),
                    pe_argv, spy, {}, ["extend", "bwd_pass"], pe["sam"], n_pe)
     report_sizes("phase 9 default", r9d, "bwd_pass")
@@ -1260,10 +1515,11 @@ def main() -> int:
                     os.path.join(work, "pe_default2"), pe_argv, spy, {},
                     ["extend", "bwd_pass"], pe["sam"], n_pe)
     rate = {k: n_pe / r["align"] for k, r in
-            (("phase 4", pe), ("flat", r9f), ("default", r9d), ("v8", r11),
-             ("default again", r9d2))}
+            (("phase 4", pe), ("flat", r9f), ("contig", r9c),
+             ("default", r9d), ("v8", r11), ("default again", r9d2))}
     log(f"phase 9 turns: phase 4 default {backward_stages(pe, n_pe)}; "
-        f"MPIBWA_BWD=flat {backward_stages(r9f, n_pe)}; default "
+        f"MPIBWA_BWD=flat {backward_stages(r9f, n_pe)}; MPIBWA_BWD=contig "
+        f"{backward_stages(r9c, n_pe)}; default "
         f"{backward_stages(r9d, n_pe)}; MPIBWA_BWD=v8 "
         f"{backward_stages(r11, n_pe)}; default again "
         f"{backward_stages(r9d2, n_pe)}")
@@ -1278,9 +1534,17 @@ def main() -> int:
         f"default against both of its neighbours: {rate['default']:.1f} / "
         f"{rate['v8']:.1f} / {rate['default again']:.1f} PE reads/s "
         f"(default, v8, default again)")
+    beats = rate["contig"] > rate["default"] and rate["contig"] > rate["flat"]
+    log(f"phase 9 MPIBWA_BWD=contig {'beats' if beats else 'does not beat'} "
+        f"both of its neighbours: {rate['flat']:.1f} / {rate['contig']:.1f} "
+        f"/ {rate['default']:.1f} PE reads/s (flat, contig, default)")
     # phases 12 and 13: the record route and the launcher on the first pairs
     phase12(work, base, paths, spy, default_sam, args.host_pairs, smi)
     phase13(work, ref, paths, spy, args.host_pairs)
+    # phase 14: long and wide reads
+    phase14_long(work, ref, codes, spy, args.long_reads, args.seed + 2, smi)
+    phase14_wide(work, ref, codes, r1l, spy, args.seed + 3, smi)
+    del codes
     # phase 10: the default run and phase 8's again on the first pairs,
     # traced; every traced SAM equals the first one (and phase 4's when
     # the input is the whole of it)

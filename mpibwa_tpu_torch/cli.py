@@ -17,7 +17,7 @@ extension through the fused occ4 CUDA kernel (ops/occ4_cuda.py), opt-in
 as in mpibwa_tpu. On a CUDA device with the int32 position path each
 backward SMEM pass runs as one launch of the CUDA kernel of
 ops/bwd_cuda.py, with the int64 path the v8 engine (MPIBWA_BWD=auto);
-MPIBWA_BWD=flat|pallas|v8 picks an engine (see
+MPIBWA_BWD=flat|pallas|v8|contig picks an engine (see
 pipeline/device_seed.py). Without the C runtime (no C compiler,
 MPIBWA_NATIVE=0, or MPIBWA_FINAL=python) the records are finalized by the
 Python route of core/, with the CIGARs and the mate rescue batched on the

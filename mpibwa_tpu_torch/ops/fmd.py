@@ -201,6 +201,35 @@ class DeviceFMIndex:
         out = (base + cnt).to(self.idt)
         return torch.where(sent[..., None], torch.zeros_like(out), out)
 
+    def occ4_cols16(self, ks: torch.Tensor) -> torch.Tensor:
+        """(E,) positions -> (4, E) idt: occ4_16 in the column layout of
+        the contig backward engine (ops/seeding_flat.py)."""
+        return self.occ4_16(ks).t()
+
+    def extend_back1(self, k, l, s, c):
+        """Backward-extend the (E,) intervals (k, l, s) by the per-entry
+        base c (0..3): the row c of extend(ik, 1) (bwt_extend,
+        bwt.c:262-275) in column layout; garbage c of masked entries is
+        harmless. Returns (k, l, s) of the extended intervals."""
+        kq = k - 1
+        tk = self.occ4_cols16(kq)  # (4, E)
+        tl = self.occ4_cols16(kq + s)
+        x2 = tl - tk
+        add = ((k <= self.primary) & (k + s - 1 >= self.primary)).to(self.idt)
+        l3 = l + add
+        lb2 = l3 + x2[3]
+        lb1 = lb2 + x2[2]
+        lb0 = lb1 + x2[1]
+        cc = c.long()[None]
+
+        def pick(rows):
+            return rows.gather(0, cc)[0]
+
+        kc = self.L2[c.long()] + 1 + pick(tk)
+        sc = pick(x2)
+        lc = pick(torch.stack([lb0, lb1, lb2, l3]))
+        return kc, lc, sc
+
     # -- batched bidirectional extension (bwt_extend, bwt.c:262-275) ---------
 
     def extend(self, ik: torch.Tensor, is_back: int) -> torch.Tensor:

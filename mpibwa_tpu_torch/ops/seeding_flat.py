@@ -6,10 +6,12 @@ sorted by lane; every round extends the live entries and applies the
 per-lane keep/dedup/emit logic with segmented scans written as cumsum /
 cummax over the flat array. The driver compacts live entries to a smaller
 capacity while the capacity is large, then runs the remaining rounds at a
-small capacity until no entry is live ("hybrid" schedule).
+small capacity until no entry is live ("hybrid" schedule). The same
+module holds the JAX package's opt-in contig engine (MPIBWA_BWD=contig,
+run_backward_contig), which keeps each lane's live entries contiguous.
 
-Scatters that JAX drops out of range go to one extra dump row here, which
-is sliced off.
+Scatters that JAX drops out of range go to one extra dump row or column
+here, which is sliced off.
 """
 
 from __future__ import annotations
@@ -191,17 +193,18 @@ def _pad_cap(n: int) -> int:
     return c
 
 
-def _pull_mems(st: FlatState, NL: int):
-    """Final pull: flatten mems on the device, ship only real entries.
-    Returns (per-lane lists of (x0, x1, x2, info), overflow (NL,))."""
-    nm = st.n_mems.clamp(max=M_CAP)
+def _pull_mems(mems, mem_infos, n_mems, overflow):
+    """Final pull: flatten the mems (NL, M_CAP, 3) and their infos (NL,
+    M_CAP) on the device, ship only real entries. Returns (per-lane lists
+    of (x0, x1, x2, info), overflow (NL,))."""
+    NL = mems.shape[0]
+    nm = n_mems.clamp(max=M_CAP)
     nm_np = nm.cpu().numpy()
-    overflow = st.overflow.cpu().numpy().copy()
+    overflow = overflow.cpu().numpy().copy()
     out_mems = [[] for _ in range(NL)]
     total = int(nm_np.sum())
     if total:
-        flat, flat_i = flatten_mems(st.mems[:NL], st.mem_infos[:NL], nm,
-                                    _pad_cap(total))
+        flat, flat_i = flatten_mems(mems, mem_infos, nm, _pad_cap(total))
         flat_np = flat[:total].cpu().numpy()
         fi_np = flat_i[:total].cpu().numpy()
         off = 0
@@ -256,4 +259,197 @@ def run_backward_flat(fm, qrows_dev, entry_dev, n_lanes: int, x0_np,
             break
     if stats is not None:
         stats["bwd_segments"] = stats.get("bwd_segments", 0) + seg_i
-    return _pull_mems(st, NL)
+    return _pull_mems(st.mems[:NL], st.mem_infos[:NL], st.n_mems,
+                      st.overflow)
+
+
+# ---------------------------------------------------------------------------
+# The contig engine (MPIBWA_BWD=contig, opt-in): the same pass with live
+# entries kept contiguous per lane by a full compaction every round. In
+# bwt_smem1a's backward loop (bwt.c:326-345) the failures of a round form a
+# prefix of each lane's live entries and the keepers a suffix, so each
+# segmented scan of the flat engine becomes a comparison with the slot
+# before, and the per-lane bookkeeping a searchsorted over the sorted lane
+# column. State is column layout: kls (3, E), entries on the minor axis.
+# Its ladder of segments runs SEG_SCHEDULE, as the flat engine's does.
+# ---------------------------------------------------------------------------
+
+CONTIG_FINISH_CAP = 16384  # at or below this capacity, run to the end
+CONTIG_TAIL_STEPS = 4  # rounds between host reads of "any lane active"
+
+
+class ContigState(NamedTuple):
+    kls: torch.Tensor  # (3, E) idt: k, l, s rows
+    info: torch.Tensor  # (E,) int32 (forward 'end' payload)
+    lane: torch.Tensor  # (E,) int32 ascending; NL = dead sentinel
+    i: torch.Tensor  # (NL,) int32 current backward position
+    active: torch.Tensor  # (NL,) bool
+    last_start: torch.Tensor  # (NL,) int32
+    minv: torch.Tensor  # (NL,) idt
+    mems_kls: torch.Tensor  # (3, NL*M_CAP + 1) idt, last column = dump
+    mems_inf: torch.Tensor  # (2, NL*M_CAP + 1) int32: info_lo, start
+    n_mems: torch.Tensor  # (NL,) int32
+    overflow: torch.Tensor  # (NL,) bool
+
+
+def assemble_cols(ivals: torch.Tensor, infos: torch.Tensor,
+                  lane_row: torch.Tensor, lane_tbl: torch.Tensor, E: int):
+    """assemble_entries in column layout: (kls (3, E), info (E,) int32,
+    lane (E,) int32) with live entries contiguous per lane and the dead
+    tail's lane == NL."""
+    NL = lane_row.shape[0]
+    ik, info, lane, live = assemble_entries(ivals, infos, lane_row,
+                                            lane_tbl, E)
+    lane = torch.where(live, lane, NL).to(torch.int32)
+    return ik.t().contiguous(), info.to(torch.int32), lane
+
+
+def _shift1(x: torch.Tensor, first) -> torch.Tensor:
+    """x moved one slot later, with ``first`` in slot 0."""
+    return torch.cat([x.new_full((1,), first), x[:-1]])
+
+
+def _round_contig(fm, st: ContigState, qrows: torch.Tensor,
+                  NL: int) -> ContigState:
+    """One backward round over every live entry; the mem buffers are
+    updated in place (the previous state is never read again)."""
+    E = st.lane.shape[0]
+    L = qrows.shape[1]
+    M = M_CAP
+    dev = st.lane.device
+    lane = st.lane
+    lane_c = lane.clamp(max=NL - 1)
+    valid = lane < NL
+    i_lane = st.i[lane_c]  # (E,)
+    qi = torch.where((i_lane >= 0) & (i_lane < L),
+                     qrows[lane_c, i_lane.clamp(0, L - 1)].to(torch.int32), 4)
+    has_c = (i_lane >= 0) & (qi < 4)
+    c = qi.clamp(0, 3)
+
+    k2, l2, s2 = fm.extend_back1(st.kls[0], st.kls[1], st.kls[2], c)
+    keeper = valid & has_c & (s2 >= st.minv[lane_c])
+
+    # neighbour logic (failures are a prefix, keepers a suffix per lane)
+    boundary = lane != _shift1(lane, -1)
+    append = keeper & (boundary | ~_shift1(keeper, False)
+                       | (s2 != _shift1(s2, 0)))
+
+    # per-lane bookkeeping: first and last live entry by searchsorted
+    lanes_r = torch.arange(NL, dtype=torch.int32, device=dev)
+    pos_f = torch.searchsorted(lane, lanes_r, side="left")
+    pos_l = torch.searchsorted(lane, lanes_r, side="right") - 1
+    posf_c = pos_f.clamp(0, E - 1)
+    lane_has = (pos_l >= pos_f) & (lane[posf_c] == lanes_r)
+
+    # emission: the first live entry failed (bwt.c:329-334), not contained
+    emit_l = lane_has & ~keeper[posf_c] & ((st.i + 1) < st.last_start)
+    midx = st.n_mems.clamp(max=M - 1)
+    dest_m = torch.where(emit_l, lanes_r * M + midx, NL * M).long()
+    st.mems_kls[:, dest_m] = st.kls[:, posf_c]
+    st.mems_inf[:, dest_m] = torch.stack([st.info[posf_c], st.i + 1])
+    overflow = st.overflow | (emit_l & (st.n_mems >= M))
+    n_mems = st.n_mems + emit_l.to(torch.int32)
+    last_start = torch.where(emit_l, st.i + 1, st.last_start)
+
+    # a lane goes on iff its last live entry kept (keepers are a suffix)
+    new_active = lane_has & keeper[pos_l.clamp(0, E - 1)]
+    new_i = torch.where(new_active, st.i - 1, st.i)
+
+    # full compaction: appended entries to the front, order kept
+    incl = torch.cumsum(append.to(torch.int32), 0)
+    dest = torch.where(append, incl - 1, E).long()
+    new_kls = st.kls.new_zeros((3, E + 1))
+    new_kls[:, dest] = torch.stack([k2, l2, s2])
+    new_info = st.info.new_zeros(E + 1)
+    new_info[dest] = st.info
+    new_lane = lane.new_full((E + 1,), NL)
+    new_lane[dest] = lane
+    return ContigState(new_kls[:, :E], new_info[:E], new_lane[:E], new_i,
+                       new_active, last_start, st.minv, st.mems_kls,
+                       st.mems_inf, n_mems, overflow)
+
+
+def contig_rounds(fm, st: ContigState, qrows: torch.Tensor, n_rounds: int,
+                  NL: int) -> ContigState:
+    for _ in range(n_rounds):
+        st = _round_contig(fm, st, qrows, NL)
+    return st
+
+
+def contig_rounds_while(fm, st: ContigState, qrows: torch.Tensor,
+                        max_rounds: int, NL: int) -> ContigState:
+    """Rounds until no lane is active (at most max_rounds), one host read
+    every CONTIG_TAIL_STEPS rounds: a round after the last lane stopped
+    changes nothing."""
+    r = 0
+    while r < max_rounds and bool(st.active.any()):
+        for _ in range(min(CONTIG_TAIL_STEPS, max_rounds - r)):
+            st = _round_contig(fm, st, qrows, NL)
+            r += 1
+    return st
+
+
+def _shrink_contig(st: ContigState, newE: int) -> ContigState:
+    """Capacity shrink = slicing: the compaction already packed the live
+    entries to the front."""
+    return st._replace(kls=st.kls[:, :newE].contiguous(),
+                       info=st.info[:newE], lane=st.lane[:newE])
+
+
+def _pad2(n: int) -> int:
+    c = 1024
+    while c < n:
+        c <<= 1
+    return c
+
+
+def run_backward_contig(fm, qrows_dev, cols_dev, n_lanes: int, x0_np,
+                        minv_np, stats: "dict | None" = None):
+    """Driver: a ladder of contig_rounds segments, each followed by one host
+    read of the live count and a shrink, while the capacity is above
+    CONTIG_FINISH_CAP; then rounds to the end. cols_dev = (kls, info,
+    lane) from assemble_cols. Same contract as run_backward_flat."""
+    NL = n_lanes
+    dev = qrows_dev.device
+    kls, info, lane = cols_dev
+    L = qrows_dev.shape[1]
+    active = torch.zeros(NL + 1, dtype=torch.bool, device=dev)
+    active[lane.long()] = True
+    st = ContigState(
+        kls=kls, info=info, lane=lane,
+        i=torch.from_numpy(x0_np.astype(np.int32) - 1).to(dev),
+        active=active[:NL],
+        last_start=torch.full((NL,), 2**31 - 1, dtype=torch.int32,
+                              device=dev),
+        minv=torch.from_numpy(minv_np.astype(fm.np_idt)).to(dev),
+        mems_kls=kls.new_zeros((3, NL * M_CAP + 1)),
+        mems_inf=torch.zeros((2, NL * M_CAP + 1), dtype=torch.int32,
+                             device=dev),
+        n_mems=torch.zeros(NL, dtype=torch.int32, device=dev),
+        overflow=torch.zeros(NL, dtype=torch.bool, device=dev))
+    seg_i = 0
+    while st.lane.shape[0] > CONTIG_FINISH_CAP:
+        n_rounds = SEG_SCHEDULE[min(seg_i, len(SEG_SCHEDULE) - 1)]
+        seg_i += 1
+        st = contig_rounds(fm, st, qrows_dev, n_rounds, NL)
+        n_live = int((st.lane < NL).sum())  # one scalar crosses to the host
+        if n_live == 0:
+            break
+        newE = _pad2(n_live)
+        if newE < st.lane.shape[0]:
+            st = _shrink_contig(st, newE)
+    else:
+        st = contig_rounds_while(fm, st, qrows_dev, L + 1, NL)
+        seg_i += 1
+    if stats is not None:
+        stats["bwd_segments"] = stats.get("bwd_segments", 0) + seg_i
+    return _pull_mems_contig(st, NL)
+
+
+def _pull_mems_contig(st: ContigState, NL: int):
+    """The mems in the flat engine's layout, pulled as it pulls them."""
+    M = M_CAP
+    mems = st.mems_kls[:, : NL * M].t().reshape(NL, M, 3)
+    inf = st.mems_inf[:, : NL * M].to(torch.int64)
+    infos = (inf[1] << 32) | (inf[0] & 0xFFFFFFFF)
+    return _pull_mems(mems, infos.reshape(NL, M), st.n_mems, st.overflow)

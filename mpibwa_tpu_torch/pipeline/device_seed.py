@@ -15,10 +15,11 @@ an H100 against the others (PERF.md). flat forces the flat engine; pallas
 takes the pass kernel on any int32 index (its plain pass on the CPU) and
 pallas_interp the plain pass on any device; v8 is the JAX package's
 accelerator engine (ops/backward8.py, either position dtype; an overflow
-is redone on the flat engine). The JAX package's opt-in contig engine is
-not ported (ROADMAP.md). In collect_flat, v8 and the pass engine hand
-back the rows of the mems, filtered and compacted on the device; flat
-goes through per-lane lists. Under v8, pass 2 builds its lane tables
+is redone on the flat engine); contig is the JAX package's opt-in contig
+engine (ops/seeding_flat.py, either position dtype), which auto never
+picks. In collect_flat, v8 and the pass engine hand back the rows of the
+mems, filtered and compacted on the device; flat and contig go through
+per-lane lists. Under v8, pass 2 builds its lane tables
 on the device from the second batch on (the speculative route), so the
 host does not wait between pass 2's forward and its backward; a capacity
 miss redoes it on the synchronous route.
@@ -61,12 +62,8 @@ def _backward_engine(fm) -> str:
         if fm.device.type != "cuda":
             return "flat"
         return "pallas" if fm.idt == torch.int32 else "v8"
-    if mode in ("flat", "pallas", "pallas_interp", "v8"):
+    if mode in ("flat", "pallas", "pallas_interp", "v8", "contig"):
         return mode
-    if mode == "contig":
-        raise NotImplementedError(
-            "MPIBWA_BWD=contig: the JAX package's contig engine is not "
-            "ported to torch; see ROADMAP.md queue 1")
     raise ValueError(f"unknown MPIBWA_BWD={mode!r}")
 
 
@@ -154,16 +151,9 @@ def _fused_p1_p3(fm, qd, lensd, min_seed_len, max_intv):
                           p3.overflow.to(i32), p3.n_seeds.to(i32)], dim=1)
     C = fwd.call_x.shape[1]
     S = p3.infos.shape[1]
-    if L < (1 << 16):
-        # start/len <= F_CAP <= 255 on every lane that does not overflow;
-        # overflow lanes are clamped (their reads go to the host engine)
-        cw = ((fwd.call_x << 16) | (fwd.call_start.clamp(max=255) << 8)
-              | fwd.call_len.clamp(max=255)).reshape(-1)
-        cdt = i32
-    else:
-        cw = ((fwd.call_x.to(i64) << 42) | (fwd.call_start.to(i64) << 21)
-              | fwd.call_len.to(i64)).reshape(-1)
-        cdt = i64
+    cw = pack_call_words(fwd.call_x, fwd.call_start, fwd.call_len,
+                         L).reshape(-1)
+    cdt = cw.dtype
     maskc = (torch.arange(C, device=dev)[None, :]
              < fwd.n_calls.clamp(max=C)[:, None]).reshape(-1)
     posc = torch.cumsum(maskc.to(i64), 0) - 1
@@ -179,6 +169,31 @@ def _fused_p1_p3(fm, qd, lensd, min_seed_len, max_intv):
     bufs = torch.zeros((B * S + 1, 4), dtype=i64, device=dev)
     bufs[torch.where(masks, poss, B * S)] = quads
     return fwd.ivals, fwd.infos, ctl, bufs[: B * S].reshape(-1)
+
+
+def pack_call_words(call_x, call_start, call_len, L: int) -> torch.Tensor:
+    """One word per forward call: int32 x<<16 | start<<8 | len when the
+    padded read length L is under 64 Ki, else int64 x<<42 | start<<21 |
+    len (21-bit fields: _pad_batch refuses reads of 2 Mbp or more).
+    start/len <= F_CAP <= 255 on every lane that does not overflow;
+    overflow lanes are clamped in the narrow form (their reads go to the
+    host engine)."""
+    if L < (1 << 16):
+        return ((call_x << 16) | (call_start.clamp(max=255) << 8)
+                | call_len.clamp(max=255))
+    i64 = torch.int64
+    return ((call_x.to(i64) << 42) | (call_start.to(i64) << 21)
+            | call_len.to(i64))
+
+
+def unpack_call_words(w: np.ndarray) -> np.ndarray:
+    """pack_call_words' words (int32 or int64) -> (n, 3) int64 [x, start,
+    len]."""
+    if w.dtype == np.int32:
+        wu = w.view(np.uint32).astype(np.int64)
+        return np.stack([wu >> 16, (wu >> 8) & 0xFF, wu & 0xFF], axis=1)
+    M21 = (1 << 21) - 1
+    return np.stack([w >> 42, (w >> 21) & M21, w & M21], axis=1)
 
 
 def _pull_p1p3(ctl_d, bufs_d, B, est_state=None):
@@ -201,13 +216,7 @@ def _pull_p1p3(ctl_d, bufs_d, B, est_state=None):
     seeds_raw = pull_prefix_async(bufs_d, 4 * e3)
     if e1 > est:
         got = pull_prefix(ctl_d, hdr + e1)
-    w = got[hdr: hdr + e1]
-    if w.dtype == np.int32:  # narrow packing (x<<16 | start<<8 | len)
-        wu = w.view(np.uint32).astype(np.int64)
-        calls_np = np.stack([wu >> 16, (wu >> 8) & 0xFF, wu & 0xFF], axis=1)
-    else:
-        M21 = (1 << 21) - 1
-        calls_np = np.stack([w >> 42, (w >> 21) & M21, w & M21], axis=1)
+    calls_np = unpack_call_words(got[hdr: hdr + e1])
     return (counts, fallback, ncl, calls_np, n3,
             lambda: seeds_raw().reshape(e3, 4))
 
@@ -258,19 +267,26 @@ class DeviceSeeder:
                                             engine == "pallas_interp")
         NLp = _v8_lanes(N) if engine == "v8" else SF._pad_cap(N)
         qrows, tables, x0, minv, e = self._lanes(qd, arr, NLp)
-        entries = SF.assemble_entries(
-            ivals_dev, infos_dev, *tables,
-            B8.cap_bucket(e, 1024) if engine == "v8" else SF._pad_cap(e))
-        if engine == "v8":
-            mems, overflow = B8.run_backward8(
-                self.dfm, qrows, entries, NLp, x0, minv,
-                min_len=self.opt.min_seed_len, stats=self.times)
-            if overflow.any():  # an accumulator filled: redo exactly
-                self.times["v8_redo"] = self.times.get("v8_redo", 0) + 1
-                engine = "flat"
-        if engine == "flat":
-            mems, overflow = SF.run_backward_flat(
-                self.dfm, qrows, entries, NLp, x0, minv, stats=self.times)
+        if engine == "contig":
+            cols = SF.assemble_cols(ivals_dev, infos_dev, *tables,
+                                    SF._pad2(SF._pad_cap(e)))
+            mems, overflow = SF.run_backward_contig(
+                self.dfm, qrows, cols, NLp, x0, minv, stats=self.times)
+        else:
+            entries = SF.assemble_entries(
+                ivals_dev, infos_dev, *tables,
+                B8.cap_bucket(e, 1024) if engine == "v8" else SF._pad_cap(e))
+            if engine == "v8":
+                mems, overflow = B8.run_backward8(
+                    self.dfm, qrows, entries, NLp, x0, minv,
+                    min_len=self.opt.min_seed_len, stats=self.times)
+                if overflow.any():  # an accumulator filled: redo exactly
+                    self.times["v8_redo"] = self.times.get("v8_redo", 0) + 1
+                    engine = "flat"
+            if engine == "flat":
+                mems, overflow = SF.run_backward_flat(
+                    self.dfm, qrows, entries, NLp, x0, minv,
+                    stats=self.times)
         for ln in np.nonzero(overflow[:N])[0]:
             row = call_list[ln][0]
             fallback[fb_map[row] if fb_map is not None else row] = True
@@ -442,8 +458,8 @@ class DeviceSeeder:
     def _backward_rows(self, qd, call_list, ivals_dev, infos_dev):
         """Backward as rows: ((n, 6) [x0, x1, x2, start, end, lane]
         min_len-filtered, chronological within lane; overflow bool). v8 and
-        the pass engine filter and compact the rows on the device; flat goes
-        through per-lane lists."""
+        the pass engine filter and compact the rows on the device; flat and
+        contig go through per-lane lists."""
         N = len(call_list)
         if N == 0:
             return np.zeros((0, 6), np.int32), False

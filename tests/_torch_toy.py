@@ -92,6 +92,81 @@ def write_fastq(path: str, reads) -> None:
             fh.write(f"@{name}\n{s}\n+\n{'I' * len(s)}\n")
 
 
+# -- long and wide reads --------------------------------------------------------
+
+def to_codes(seq: str) -> np.ndarray:
+    """ASCII bases -> uint8 codes 0-3, anything else 4."""
+    table = np.full(256, 4, np.uint8)
+    table[np.frombuffer(b"ACGTacgt", np.uint8)] = [0, 1, 2, 3] * 2
+    return table[np.frombuffer(seq.encode("ascii"), np.uint8)]
+
+
+def to_bases(codes: np.ndarray) -> str:
+    return np.frombuffer(b"ACGTN", np.uint8)[codes].tobytes().decode()
+
+
+def _long_errors(rng, seq: np.ndarray, rc: bool) -> np.ndarray:
+    """ONT-like errors: 5% substitutions, a 3-bp deletion in the second
+    quarter and a 4-bp insertion in the second half; then the reverse
+    complement when rc."""
+    ln = len(seq)
+    m = rng.random(ln) < 0.05
+    seq = np.where(m, (seq + rng.integers(1, 4, ln)) % 4,
+                   seq).astype(np.uint8)
+    d0 = int(rng.integers(ln // 4, ln // 2))
+    seq = np.concatenate([seq[:d0], seq[d0 + 3:]])
+    i0 = int(rng.integers(ln // 2, ln - 16))
+    ins = rng.integers(0, 4, 4).astype(np.uint8)
+    seq = np.concatenate([seq[:i0], ins, seq[i0:]])
+    if rc:
+        seq = np.where(seq < 4, 3 - seq, 4)[::-1].astype(np.uint8)
+    return seq
+
+
+def long_reads(ref: np.ndarray, rng, lengths,
+               max_n_share: float = 0.05) -> "list[np.ndarray]":
+    """Reads of the given lengths off the forward reference codes ref (N =
+    4) with _long_errors, every other one reverse-complemented: the reads
+    of tests/test_long_reads.py:_make_long_reads (the same generator calls,
+    so the same reads from the same seed). A sample with a larger share
+    of N than max_n_share is drawn again."""
+    reads = []
+    while len(reads) < len(lengths):
+        ln = lengths[len(reads)]
+        start = int(rng.integers(0, len(ref) - ln - 64))
+        seq = ref[start: start + ln].astype(np.uint8).copy()
+        if (seq >= 4).mean() > max_n_share:
+            continue
+        reads.append(_long_errors(rng, seq, len(reads) % 2 == 1))
+    return reads
+
+
+def long_pairs(ref: np.ndarray, rng, lengths, insert=(1500, 150)):
+    """FR pairs of long reads of lengths (R1, R2, R1, R2, ...): a fragment
+    of N(insert) bp (at least its longer read) without N off the forward
+    reference codes ref; R1 its start, R2 the reverse complement of its
+    end, each with _long_errors. Returns (R1 reads, R2 reads)."""
+    r1, r2 = [], []
+    for l1, l2 in zip(lengths[0::2], lengths[1::2]):
+        while True:
+            isize = max(int(rng.normal(*insert)), l1, l2)
+            start = int(rng.integers(0, len(ref) - isize - 64))
+            frag = ref[start: start + isize].astype(np.uint8)
+            if not (frag >= 4).any():
+                break
+        r1.append(_long_errors(rng, frag[:l1].copy(), False))
+        r2.append(_long_errors(rng, frag[isize - l2:].copy(), True))
+    return r1, r2
+
+
+def substituted(rng, seq: np.ndarray, rate: float) -> np.ndarray:
+    """seq (codes 0-3) with substitutions at rate."""
+    out = seq.astype(np.uint8).copy()
+    hit = rng.random(len(out)) < rate
+    out[hit] = (out[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+    return out
+
+
 def build_toy(directory: str, n_pairs: int = 1000) -> "dict[str, str]":
     """Write toy.fa (+ its bwa index), r1.fq and r2.fq under directory;
     returns their paths. Idempotent per directory."""

@@ -621,8 +621,7 @@ def test_collect_flat_pallas_equals_flat(fms, reads, monkeypatch):
     assert len(out["flat"][0]) > N_READS
 
 
-@pytest.mark.parametrize("mode,exc", [("contig", NotImplementedError),
-                                      ("fastest", ValueError)])
+@pytest.mark.parametrize("mode,exc", [("fastest", ValueError)])
 def test_unported_engines_go_on_raising(fms, reads, monkeypatch, mode, exc):
     from mpibwa_tpu_torch.pipeline.device_seed import DeviceSeeder
 
