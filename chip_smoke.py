@@ -3,9 +3,10 @@
 
 Phases, one printed line (or more) each:
   1. the card's name and power limit (nvidia-smi);
-  2. the three CUDA kernels (mpibwa_tpu_torch/csrc/extend.cu,
-     occ4_extend.cu, bwd_pass.cu) built from the checkout, one nvcc each,
-     all started together; then kernel 1 held against the plain PyTorch
+  2. the six CUDA kernels' five sources (mpibwa_tpu_torch/csrc/extend.cu,
+     occ4_extend.cu, bwd_pass.cu, fwd_automata.cu with kernels 4 and 5,
+     sa_walk.cu) built from the checkout, one nvcc each, all started
+     together; then kernel 1 held against the plain PyTorch
      version (exact equality) on random problems at every window bucket
      and on the edge cases of tests/_torch_toy.extend_edge_cases, timed
      (median of 5 CUDA-event timings after a warm-up); later (2b) the same
@@ -16,8 +17,10 @@ Phases, one printed line (or more) each:
      under build/genome/ by seed and size;
   4. `mpibwa_tpu_torch.cli mem -t 1` with MPIBWA_EXT=device on simulated
      101-bp pairs, the default backward engine otherwise (each backward
-     pass one launch of the pass kernel): kernels 1 and 2 (launch counts
-     reset just before);
+     pass one launch of the pass kernel): kernels 1 and 2, and the
+     forward automata (4: forward_p3, 5: forward_pass) and the SA walk (6)
+     on every microbatch, none of the three loops' plain versions (launch
+     counts reset just before);
   5. the same run with MPIBWA_EXT=native (every DP in C): the SAM must be
      byte-identical to phase 4's;
   6. the first pairs through the host spec engine (core/,
@@ -39,6 +42,11 @@ Phases, one printed line (or more) each:
      with p2_fwd and p2_bwd), host reads of the backward, pass-2 runs on
      the speculative route and redone, v8 passes redone on the flat engine
      and peak device memory;
+  15. the default in three turns, kernels / plain loops / kernels: in the
+     middle turn the seeder's forward automata and SA walks run their
+     plain versions (patched in, no knob); every SAM byte-identical to
+     phase 4's; fwd1, p2_fwd and the SA walk (each call timed between two
+     synchronizes) of each turn;
   10. the default run and phase 8's once more on the first --traced-pairs
      pairs (5,000) under torch.profiler (CUDA activity only): each
      kernel's own device time summed over the run ("run_ms", over
@@ -67,6 +75,18 @@ Phases, one printed line (or more) each:
      parts (lane tables and entries, entry state, pass kernel, the rows'
      compaction and pull) beside the per-lane-list route it replaces
      (medians of 5, a synchronize around each part);
+  2g. kernels 4-6 against their plain versions (every output field equal):
+     forward_p3 on phase 4's first microbatch, phase 14a's long reads
+     (which overflow F_CAP, C_CAP and S3_CAP) and phase 14c's batch with
+     the wide read (the plain loop over its short reads on the card, over
+     the wide read alone, about 63,000 host rounds, on the CPU in a side
+     process started after phase 15, this script with --plain-wide, while
+     phases 12-2f run); forward_pass on pass 2's first lanes (starts,
+     min_intv > 1) and chained on phase 4's first microbatch and 14a's
+     reads; the SA walk on phase 4's first prefetch plus 0, primary,
+     seq_len and multiples of sa_intv; phase 4's inputs again on phase
+     2e's int64 index; kernel and plain times (CUDA events, medians), the
+     bound and the dependent-latency floor (the longest lane's steps);
   12. the record route (the route without the C runtime's chain and
      finalization: MPIBWA_FINAL=python MPIBWA_CHAIN=python) on phase 6's
      pairs, PE and SE: SAM byte-identical to phases 6 and 7's port runs on
@@ -90,13 +110,15 @@ Phases, one printed line (or more) each:
      wide read's the host spec engine's; fwd1 and its steps, the stages,
      launches and peak device memory.
 Phases 4, 8 and 9 print each kernel's launches by batch size; every
-default-chaining run (phases 4-11, 14) must have chained in C.
+default-chaining run (phases 4-11, 14, 15) must have chained in C, and
+every run but phase 15's plain turn must call no plain loop.
 Every launch count is set to 0 just before a run of the main path and read
 just after. Each kernel's bound is the larger of the bytes its inputs need
 (each byte once, a block row once however many entries read it) over
 3.35 TB/s and its integer operations over 33.5 TOP/s (int32 runs on
-half the lanes of the card's 67 TFLOP/s float32 rate). Then a JSON line of
-kernel results, and last
+half the lanes of the card's 67 TFLOP/s float32 rate); for kernels 4-6 the
+bytes count each 32-byte O2 sector the run's steps need once. Then a JSON
+line of kernel results, and last
 {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Usage: python3 chip_smoke.py [--pairs N] [--host-pairs N] [--genome-bp N]
@@ -109,9 +131,11 @@ error.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import functools
 import json
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -131,10 +155,36 @@ KERNELS = {
     "bwd_pass": {"name": "bwd_pass", "route": "cuda",
                  "source": "mpibwa_tpu_torch/csrc/bwd_pass.cu",
                  "replaces": "mpibwa_tpu/ops/pallas_bwd.py:242"},
+    # the JAX package's device loops: XLA while_loops, not Pallas kernels
+    "forward_p3": {"name": "forward_p3", "route": "cuda",
+                   "source": "mpibwa_tpu_torch/csrc/fwd_automata.cu",
+                   "replaces": "mpibwa_tpu/ops/seeding.py:478",
+                   "replaces_what": "the XLA while_loop of forward_p3 (not "
+                                    "a Pallas kernel)"},
+    "forward_pass": {"name": "forward_pass", "route": "cuda",
+                     "source": "mpibwa_tpu_torch/csrc/fwd_automata.cu",
+                     "replaces": "mpibwa_tpu/ops/seeding.py:227",
+                     "replaces_what": "the XLA while_loop of forward_pass "
+                                      "(not a Pallas kernel)"},
+    "sa_walk": {"name": "sa_walk", "route": "cuda",
+                "source": "mpibwa_tpu_torch/csrc/sa_walk.cu",
+                "replaces": "mpibwa_tpu/ops/fmd.py:589",
+                "replaces_what": "the XLA while_loop of _sa_lookup16 (not a "
+                                 "Pallas kernel)"},
 }
+# the sources to build (csrc/<name>.cu), one nvcc each
+SOURCES = sorted({os.path.basename(k["source"])[:-3]
+                  for k in KERNELS.values()})
 # each kernel's name in a profiler trace (csrc/*.cu)
 SYMBOLS = {"extend": "extend_kernel<", "occ4_extend": "occ4_extend_kernel",
-           "bwd_pass": "bwd_pass_kernel<"}
+           "bwd_pass": "bwd_pass_kernel<",
+           "forward_p3": "forward_p3_kernel<",
+           "forward_pass": "forward_pass_kernel<",
+           "sa_walk": "sa_walk_kernel<"}
+# the kernels every default run of the main path launches
+MAIN_KERNELS = ("extend", "bwd_pass", "forward_p3", "forward_pass",
+                "sa_walk")
+LOOP_KERNELS = ("forward_p3", "forward_pass", "sa_walk")
 # the earlier round kernel (one launch a round) at phase 2d's captured
 # shape, from PERF.md (H100 80GB HBM3, 700 W): the old design's yardstick
 OLD_PASS_MS, OLD_LAUNCH_MS = 2.8365, 0.0423
@@ -145,10 +195,20 @@ INT32_OPS_PER_S = 33.5e12  # half the lanes of its 67 TFLOP/s float32 rate
 # of interval arithmetic and selects
 OPS_PER_EXTENSION = 2 * (10 + 20 * 4.5) + 60
 OPS_PER_DP_CELL = 16  # adds, maxima and selects of one ksw_extend2 cell
+# integer operations of one forward extension through O2 (csrc/o2.cuh):
+# four ranks of about 12 (mask, select, popcount, correction), two
+# positions of about 6 and about 40 of interval arithmetic and the
+# automaton's bookkeeping; of one SA walk step, one rank, the base and
+# about 15 more
+OPS_PER_O2_STEP = 4 * 12 + 2 * 6 + 40
+OPS_PER_SA_STEP = 12 + 6 + 8 + 15
+SECTOR = 32  # bytes of one O2 sub-block (4 rows of 8 B), read as a unit
 # every Q and T bucket of DeviceAligner.Q_BUCKETS / T_BUCKETS
 BUCKETS = [(64, 128), (128, 256), (192, 384), (256, 512), (512, 768),
            (512, 1024)]
 PEN = (6, 1, 6, 1)  # bwa-mem's default gap open/extend, del and ins
+SIDE = []  # side processes (start_plain_wide), stopped when main returns
+SIDE_WAIT_S = 600  # the longest phase 2g waits for the side process
 
 
 class Failed(Exception):
@@ -247,7 +307,7 @@ def phase2_random(rng, dev, mat, toy) -> int:
     from mpibwa_tpu_torch.ops import _build
 
     t0 = time.time()
-    names = list(KERNELS)
+    names = SOURCES
     _build.load_all(names)
     log(f"phase 2 build: nvcc sm_90a, {len(names)} sources side by side, "
         f"{time.time() - t0:.2f}s")
@@ -338,17 +398,34 @@ def build_genome(seed: int, n: int) -> "tuple[str, str]":
 class Spy:
     """Records the Runtime the CLI builds, a few extension kernel calls (the
     largest B) for phase 2b, the largest occ4 batch for phase 2c, the first
-    backward pass through the pass kernel for phase 2d and the batch size
-    of every wrapper call that launches a kernel. The launch counts stay on
-    the wrappers themselves."""
+    backward pass through the pass kernel for phase 2d, the forward
+    automata's inputs, pass 2's first call and the first SA walk of a run
+    tagged for capture (phase 2g), and the batch size of every wrapper call
+    that launches a kernel. The launch counts stay on the wrappers
+    themselves. It counts every call of the three loops' plain versions
+    (ops/seeding.forward_p3, forward_pass, ops/fmd._sa_lookup16): a main-path
+    run makes none. With ``plain`` set, the seeder's calls of the three
+    loop kernels go to those plain versions instead (phase 15); with
+    ``time_sa`` set, each SA walk is timed between two synchronizes."""
 
     def __init__(self):
-        from mpibwa_tpu_torch.ops import bwd_cuda, extend_cuda, occ4_cuda
+        from mpibwa_tpu_torch.ops import (bwd_cuda, extend_cuda, fmd,
+                                          fwd_cuda, occ4_cuda, sa_cuda,
+                                          seeding)
         from mpibwa_tpu_torch.parallel.runtime import Runtime
         from mpibwa_tpu_torch.pipeline import device_seed
         from mpibwa_tpu_torch.pipeline.device_seed import DeviceSeeder
 
         self.runtimes = []
+        self.fwd_calls = {}  # capture tag -> forward_p3 arguments
+        self.p2_call = None  # the first pass-2 forward_pass arguments
+        self.sa_ks = None  # the first SA walk's indices
+        self.capture = None  # the tag of the run being captured
+        self.plain = False
+        self.time_sa = False
+        self.sa_s = 0.0
+        self.sa_calls = 0
+        self.plain_calls = 0
         self.captured = []
         self.occ4_ik = None
         self.bwd_call = None
@@ -357,7 +434,13 @@ class Spy:
         self.pass_widths = []  # query-row width of every pass launch
         self.word_dtypes = []  # dtype of every pass-1 call-word tensor
         self._lock = threading.Lock()
-        self._mods = (extend_cuda, occ4_cuda, bwd_cuda)
+        self._mods = (extend_cuda, occ4_cuda, bwd_cuda, fwd_cuda, sa_cuda,
+                      seeding, fmd)
+        self._real_loops = (fwd_cuda.forward_p3_kernel,
+                            fwd_cuda.forward_pass_kernel,
+                            sa_cuda.sa_walk_kernel)
+        self._plain = (seeding.forward_p3, seeding.forward_pass,
+                       fmd._sa_lookup16)
         self._real = extend_cuda.extend_batch_kernel
         self._real_occ4 = occ4_cuda.extend_kernel
         self._real_bwd = bwd_cuda.run_backward_fused
@@ -430,6 +513,55 @@ class Spy:
                 spy.word_dtypes.append(out.dtype)
             return out
 
+        def counted(real):
+            def plain(*a, **k):
+                with spy._lock:
+                    spy.plain_calls += 1
+                return real(*a, **k)
+            return plain
+
+        def forward_p3(fm, q, lens, minv, msl, max_intv):
+            with spy._lock:
+                got = spy.fwd_calls.get(spy.capture)
+                if spy.capture and (got is None
+                                    or q.shape[1] > got[0].shape[1]):
+                    spy.fwd_calls[spy.capture] = (q.clone(), lens.clone(),
+                                                  minv.clone())
+            if spy.plain:
+                return seeding.forward_p3(fm, q, lens, minv, msl, max_intv)
+            return sized("forward_p3", spy._real_loops[0], q.shape[0], fm,
+                         q, lens, minv, msl, max_intv)
+
+        def forward_pass(fm, q, lens, minv, chain=True, starts=None):
+            with spy._lock:
+                if spy.capture == "4" and not chain and spy.p2_call is None:
+                    spy.p2_call = (q.clone(), lens.clone(), minv.clone(),
+                                   starts.clone())
+            if spy.plain:
+                return seeding.forward_pass(fm, q, lens, minv, chain, starts)
+            return sized("forward_pass", spy._real_loops[1], q.shape[0], fm,
+                         q, lens, minv, chain, starts)
+
+        def sa_walk(fm, ks):
+            with spy._lock:
+                if spy.capture == "4" and spy.sa_ks is None:
+                    spy.sa_ks = ks.clone()
+                spy.sa_calls += 1
+            if spy.time_sa:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+            if spy.plain:
+                out = fmd._sa_lookup16(fm.o2_tables(), fm.L2, fm.primary,
+                                       fm.seq_len, fm.sa, fm.sa_intv, ks)
+            else:
+                out = sized("sa_walk", spy._real_loops[2], ks.shape[0], fm,
+                            ks)
+            if spy.time_sa:
+                torch.cuda.synchronize()
+                with spy._lock:
+                    spy.sa_s += time.perf_counter() - t
+            return out
+
         Runtime.__init__ = rt_init
         extend_cuda.extend_batch_kernel = capture
         occ4_cuda.extend_kernel = capture_occ4
@@ -437,15 +569,24 @@ class Spy:
         bwd_cuda.bwd_pass_kernel = size_pass
         DeviceSeeder._backward_rows = capture_rows
         device_seed.pack_call_words = words
+        seeding.forward_p3, seeding.forward_pass, fmd._sa_lookup16 = (
+            counted(f) for f in self._plain)
+        fwd_cuda.forward_p3_kernel = forward_p3
+        fwd_cuda.forward_pass_kernel = forward_pass
+        sa_cuda.sa_walk_kernel = sa_walk
 
     @staticmethod
     def kernel_wrappers() -> dict:
         """Each kernel's wrapper, which counts its launches."""
-        from mpibwa_tpu_torch.ops import bwd_cuda, extend_cuda, occ4_cuda
+        from mpibwa_tpu_torch.ops import (bwd_cuda, extend_cuda, fwd_cuda,
+                                          occ4_cuda, sa_cuda)
 
         return {"extend": extend_cuda.extend_batch_kernel,
                 "occ4_extend": occ4_cuda.extend_kernel,
-                "bwd_pass": bwd_cuda.bwd_pass_kernel}
+                "bwd_pass": bwd_cuda.bwd_pass_kernel,
+                "forward_p3": fwd_cuda.forward_p3_kernel,
+                "forward_pass": fwd_cuda.forward_pass_kernel,
+                "sa_walk": sa_cuda.sa_walk_kernel}
 
     @property
     def launches(self) -> dict:
@@ -472,11 +613,16 @@ class Spy:
         Runtime.__init__ = self._rt_init
         DeviceSeeder._backward_rows = self._real_rows
         device_seed.pack_call_words = self._real_words
-        extend_cuda, occ4_cuda, bwd_cuda = self._mods
+        (extend_cuda, occ4_cuda, bwd_cuda, fwd_cuda, sa_cuda, seeding,
+         fmd) = self._mods
         extend_cuda.extend_batch_kernel = self._real
         occ4_cuda.extend_kernel = self._real_occ4
         bwd_cuda.run_backward_fused = self._real_bwd
         bwd_cuda.bwd_pass_kernel = self._real_pass
+        (fwd_cuda.forward_p3_kernel, fwd_cuda.forward_pass_kernel,
+         sa_cuda.sa_walk_kernel) = self._real_loops
+        seeding.forward_p3, seeding.forward_pass, fmd._sa_lookup16 = \
+            self._plain
 
     def reset(self):
         for fn in self.wrappers.values():
@@ -486,13 +632,19 @@ class Spy:
         self.runtimes.clear()
         self.pass_widths.clear()
         self.word_dtypes.clear()
+        self.sa_s = 0.0
+        self.sa_calls = 0
+        self.plain_calls = 0
 
 
 def run_cli(workdir: str, argv: "list[str]", spy: Spy, ext: str,
-            knobs: "dict | None" = None) -> dict:
+            knobs: "dict | None" = None, capture: "str | None" = None
+            ) -> dict:
     """`cli mem` in workdir with -o out; returns its SAM bytes and stats.
     knobs: environment variables for this run only (MPIBWA_PALLAS and
-    MPIBWA_BWD are unset otherwise: the defaults)."""
+    MPIBWA_BWD are unset otherwise: the defaults); capture: the tag under
+    which the spy keeps the run's forward inputs. Unless the spy routes
+    the loops to their plain versions, the run must not call them."""
     from mpibwa_tpu_torch import cli
 
     os.makedirs(workdir, exist_ok=True)
@@ -503,6 +655,7 @@ def run_cli(workdir: str, argv: "list[str]", spy: Spy, ext: str,
     cwd = os.getcwd()
     os.chdir(workdir)
     spy.reset()
+    spy.capture = capture
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -516,9 +669,13 @@ def run_cli(workdir: str, argv: "list[str]", spy: Spy, ext: str,
         al = rt.aligners[0]
         chained_in_c = al._native_chainer() is not None
     finally:
+        spy.capture = None
         os.chdir(cwd)
         for k in knobs or {}:
             os.environ.pop(k, None)
+    if spy.plain_calls and not spy.plain:
+        raise Failed(f"the main path called a plain loop "
+                     f"{spy.plain_calls} times")
     with open(os.path.join(workdir, "out.sam"), "rb") as fh:
         sam = fh.read()
     return {"sam": sam, "wall": wall, "align": rt.times["align"],
@@ -526,7 +683,8 @@ def run_cli(workdir: str, argv: "list[str]", spy: Spy, ext: str,
             "launches": spy.launches, "stats": al.stats,
             "seed_times": al.seeder.times,
             "peak": torch.cuda.max_memory_allocated(),
-            "sizes": spy.size_hist()}
+            "sizes": spy.size_hist(), "sa_s": spy.sa_s,
+            "sa_calls": spy.sa_calls, "plain_calls": spy.plain_calls}
 
 
 def check_sam(sam: bytes, n_reads: int) -> float:
@@ -832,12 +990,12 @@ WIDE_READS = 16_384  # phase 2e: the first microbatch of phase 4's input
 WIDE_ROW = 16_384  # phase 2d: query rows padded past the kernel's 12,288
 
 
-def phase2e(ref: str, fm32, reads) -> None:
+def phase2e(ref: str, fm32, reads):
     """The int64 position path on the phase 3 genome: collect_flat under v8
     == v8 on the int32 index (all three arrays), flat and contig == v8 on
     (x0, x2, info), the offsets and the fallback flags; v8, flat and contig
     timed in turns (medians of 3 after a warm-up) with peak device
-    memory."""
+    memory. Returns the int64 index (phase 2g)."""
     from mpibwa_tpu_torch.core.opts import mem_opt_init
     from mpibwa_tpu_torch.ops.fmd import DeviceFMIndex
     from mpibwa_tpu_torch.pipeline.device_seed import DeviceSeeder
@@ -915,6 +1073,7 @@ def phase2e(ref: str, fm32, reads) -> None:
             f"{', '.join(f'{t:.3f}' for t in times[key])}); peak device "
             f"memory {peak[key] / 2**30:.3f} GiB (both indexes resident); "
             f"over its 4 runs: {st}")
+    return wide
 
 
 def phase2f(call, seed_times: dict) -> None:
@@ -986,6 +1145,260 @@ def phase2f(call, seed_times: dict) -> None:
         f"the whole raw route (_backward_rows) {ms_whole:.3f}; the "
         f"per-lane-list route in place of the compaction {ms_lists:.3f}; "
         f"phase 4's bwd1 over the run {seed_times.get('bwd1', 0.0):.3f} s")
+
+
+# -- phase 2g: the device loops' kernels against their plain versions --------
+
+def fields_err(got, want) -> int:
+    """Max abs difference over every field of two output tuples (nested
+    tuples of tensors, bools as 0/1); shapes and dtypes must agree."""
+    if isinstance(want, torch.Tensor):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise Failed(f"output {tuple(got.shape)} {got.dtype} against "
+                         f"{tuple(want.shape)} {want.dtype}")
+        return max_err(got, want)
+    return max(fields_err(g, w) for g, w in zip(got, want))
+
+
+def fwd_bound(st: dict, q, lens, fwd, p3=None, starts: bool = False
+              ) -> "tuple[float, str, int, int]":
+    """Bound of one launch of a forward kernel: each O2 sector the lanes'
+    needed extensions read once (st, from the plain run), the bytes of the
+    reads the lanes look at (to lens + 1), lens, min_intv (and starts),
+    and the entries the kernel writes; operations OPS_PER_O2_STEP an
+    extension. Returns (ms, by, bytes, operations)."""
+    from mpibwa_tpu_torch.ops.seeding import C_CAP, F_CAP, S3_CAP
+
+    B, L = q.shape
+    pos = fwd.ivals.element_size()
+    nbytes = SECTOR * st["sectors"]
+    nbytes += int((lens.long() + 1).clamp(max=L).sum())
+    nbytes += B * (4 + pos + (4 if starts else 0))
+    nbytes += int(fwd.n_pushed.clamp(max=F_CAP).sum()) * (3 * pos + 4)
+    nbytes += int(fwd.n_calls.clamp(max=C_CAP).sum()) * 12 + B * 9
+    if p3 is not None:
+        nbytes += (int(p3.n_seeds.clamp(max=S3_CAP).sum()) * (3 * pos + 8)
+                   + B * 5)
+    ops = OPS_PER_O2_STEP * st["steps"]
+    return bound(nbytes, ops) + (nbytes, ops)
+
+
+def wide_case(fm, call, side, wide_out, one, worst, msl, mi) -> None:
+    """forward_p3 on phase 14c's batch against the plain loop: over the
+    short reads on the card here, and over the wide read (the last lane)
+    as the side process wrote it (plain_wide, on the CPU)."""
+    from mpibwa_tpu_torch.ops import fwd_cuda, seeding
+
+    q, lens, _ = call
+    ones = torch.ones(len(q), dtype=torch.int64, device=q.device)
+    got = one("forward_p3", fwd_cuda.forward_p3_kernel, fm, q, lens, ones,
+              msl, mi)
+    ms = median_ms(lambda: fwd_cuda.forward_p3_kernel(fm, q, lens, ones, msl,
+                                                      mi), 3)
+    t = time.perf_counter()
+    short = seeding.forward_p3(fm, q[:-1], lens[:-1], ones[:-1], msl, mi)
+    torch.cuda.synchronize()
+    short_s = time.perf_counter() - t
+    t = time.perf_counter()
+    try:
+        rc = side.wait(timeout=SIDE_WAIT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    waited = time.perf_counter() - t
+    if rc != 0:
+        with open(wide_out + ".log") as fh:
+            raise Failed(f"phase 2g: the plain run of phase 14c's wide read "
+                         f"{'timed out' if rc is None else f'exited {rc}'}"
+                         f":\n{fh.read()[-3000:]}")
+    d = np.load(wide_out)
+    want = tuple(
+        type(part)(*(torch.cat([a.cpu(), torch.from_numpy(d[f"{pre}_{n}"])])
+                     for n, a in zip(part._fields, part)))
+        for part, pre in zip(short, ("fwd", "p3")))
+    err = fields_err(tuple(type(g)(*(t.cpu() for t in g)) for g in got),
+                     want)
+    worst["forward_p3"] = max(worst["forward_p3"], err)
+    steps = int(d["steps"])
+    log(f"phase 2g forward_p3 phase 14c's batch with the wide read "
+        f"(B={q.shape[0]}, L={q.shape[1]}, {fm.idt}): max_abs_err={err} over "
+        f"every field of both automata against the plain loop, over the "
+        f"short reads on the card ({short_s:.2f} s) and over the wide read "
+        f"alone on the CPU in a side process ({float(d['seconds']):.1f} s, "
+        f"{steps} rounds with up to 3 over-steps; waited {waited:.1f} s for "
+        f"it here); fallback lanes {int(want[0].overflow.sum())}, pass-3 "
+        f"overflow {int(want[1].overflow.sum())}; kernel {ms:.4f} ms (median "
+        f"of 3, CUDA events), {ms * 1e3 / max(steps, 1):.3f} us a step")
+
+
+def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
+    """The forward automata and SA walk kernels against their plain versions
+    (ops/seeding.forward_p3, forward_pass, ops/fmd._sa_lookup16) on the
+    card, every output field equal: forward_p3 on phase 4's first
+    microbatch, phase 14a's long reads and phase 14c's batch with the wide
+    read (the wide lane's plain run from the side process that
+    start_plain_wide started); forward_pass on pass 2's first lanes
+    (starts, min_intv > 1) and chained on phase 4's first microbatch and
+    14a's reads; the SA walk on phase 4's first prefetch plus 0, primary,
+    seq_len and multiples of sa_intv; phase 4's inputs again on the int64
+    index. Kernel and plain times (CUDA events, medians) at the main
+    path's shapes, each launch's bound and its dependent-latency floor
+    (the longest lane's steps, one dependent O2 sector load a step)."""
+    from mpibwa_tpu_torch.core.opts import mem_opt_init
+    from mpibwa_tpu_torch.ops import fwd_cuda, sa_cuda, seeding
+    from mpibwa_tpu_torch.ops.fmd import _sa_lookup16
+
+    if ("4" not in spy.fwd_calls or "14a" not in spy.fwd_calls
+            or "14c" not in spy.fwd_calls or spy.p2_call is None
+            or spy.sa_ks is None):
+        raise Failed("phase 2g: the main path's forward or SA inputs were "
+                     "not captured")
+    opt = mem_opt_init()
+    msl, mi = opt.min_seed_len, opt.max_mem_intv
+    wrappers = Spy.kernel_wrappers()
+    worst = {k: 0 for k in LOOP_KERNELS}
+    res = {}
+
+    def one(name, f, *a):
+        n0 = wrappers[name].launches
+        out = f(*a)
+        torch.cuda.synchronize()
+        if wrappers[name].launches != n0 + 1:
+            raise Failed(f"phase 2g: {name} took other than one launch")
+        return out
+
+    def p3_case(tag, idx, q, lens, timed):
+        ones = torch.ones(len(q), dtype=torch.int64, device=q.device)
+        got = one("forward_p3", fwd_cuda.forward_p3_kernel, idx, q, lens,
+                  ones, msl, mi)
+        st = {}
+        t = time.perf_counter()
+        want = seeding.forward_p3(idx, q, lens, ones, msl, mi, stats=st)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        err = fields_err(got, want)
+        worst["forward_p3"] = max(worst["forward_p3"], err)
+        line = (f"phase 2g forward_p3 {tag} (B={q.shape[0]}, L={q.shape[1]}, "
+                f"{idx.idt}): max_abs_err={err} over every field of both "
+                f"automata; {st['rounds']} rounds (the longest lane's steps), "
+                f"{st['steps']} extensions, {st['sectors']} distinct O2 "
+                f"sectors; fallback lanes {int(want[0].overflow.sum())}, "
+                f"pass-3 overflow {int(want[1].overflow.sum())}; plain once "
+                f"{plain_s * 1e3:.1f} ms (counting on)")
+        if timed:
+            ms = median_ms(lambda: fwd_cuda.forward_p3_kernel(
+                idx, q, lens, ones, msl, mi), 5)
+            plain_ms = median_ms(lambda: seeding.forward_p3(
+                idx, q, lens, ones, msl, mi), 3)
+            b_ms, b_by, nb, ops = fwd_bound(st, q, lens, got[0], got[1])
+            line += (f"; kernel {ms:.4f} ms (median of 5), plain "
+                     f"{plain_ms:.1f} ms (median of 3), CUDA events; bound "
+                     f"{b_ms:.5f} ms by {b_by} ({nb} B, {ops} operations), "
+                     f"{b_ms / ms:.4f} of the kernel's time; latency floor "
+                     f"{st['rounds']} dependent sector loads, "
+                     f"{ms * 1e3 / max(st['rounds'], 1):.3f} us a step")
+            if idx is fm:
+                res["forward_p3"] = {"ms": ms, "plain_ms": plain_ms,
+                                     "bound_ms": b_ms, "bound_by": b_by}
+        else:
+            ms = median_ms(lambda: fwd_cuda.forward_p3_kernel(
+                idx, q, lens, ones, msl, mi), 3)
+            line += (f"; kernel {ms:.4f} ms (median of 3, CUDA events), "
+                     f"{ms * 1e3 / max(st['rounds'], 1):.3f} us a step")
+        log(line)
+
+    def pass_case(tag, idx, q, lens, minv, chain, starts, timed):
+        got = one("forward_pass", fwd_cuda.forward_pass_kernel, idx, q, lens,
+                  minv, chain, starts)
+        st = {}
+        want = seeding.forward_pass(idx, q, lens, minv, chain, starts,
+                                    stats=st)
+        err = fields_err(got, want)
+        worst["forward_pass"] = max(worst["forward_pass"], err)
+        ms = median_ms(lambda: fwd_cuda.forward_pass_kernel(
+            idx, q, lens, minv, chain, starts), 5)
+        line = (f"phase 2g forward_pass {tag} (chain={chain}, B={q.shape[0]}, "
+                f"L={q.shape[1]}, {idx.idt}): max_abs_err={err} over every "
+                f"field; {st['rounds']} rounds, {st['steps']} extensions, "
+                f"{st['sectors']} distinct O2 sectors, "
+                f"{int(want.n_calls.sum())} calls; kernel {ms:.4f} ms "
+                f"(median of 5, CUDA events)")
+        if timed:
+            plain_ms = median_ms(lambda: seeding.forward_pass(
+                idx, q, lens, minv, chain, starts), 3)
+            b_ms, b_by, nb, ops = fwd_bound(st, q, lens, got,
+                                            starts=starts is not None)
+            line += (f", plain {plain_ms:.2f} ms (median of 3); bound "
+                     f"{b_ms:.5f} ms by {b_by} ({nb} B, {ops} operations), "
+                     f"{b_ms / ms:.4f} of the kernel's time; latency floor "
+                     f"{st['rounds']} dependent sector loads, "
+                     f"{ms * 1e3 / max(st['rounds'], 1):.3f} us a step")
+            if idx is fm:
+                res["forward_pass"] = {"ms": ms, "plain_ms": plain_ms,
+                                       "bound_ms": b_ms, "bound_by": b_by}
+        log(line)
+
+    def sa_case(tag, idx, ks, timed):
+        got = one("sa_walk", sa_cuda.sa_walk_kernel, idx, ks)
+        st = {}
+        args = (idx.o2_tables(), idx.L2, idx.primary, idx.seq_len, idx.sa,
+                idx.sa_intv)
+        want = _sa_lookup16(*args, ks, stats=st)
+        err = fields_err(got, want)
+        worst["sa_walk"] = max(worst["sa_walk"], err)
+        ms = median_ms(lambda: sa_cuda.sa_walk_kernel(idx, ks), 5)
+        plain_ms = median_ms(lambda: _sa_lookup16(*args, ks), 3)
+        isz = ks.element_size()
+        nb = (SECTOR * (st["sectors"] + st["sa_rows"]) + 2 * isz * len(ks))
+        ops = OPS_PER_SA_STEP * st["steps"]
+        b_ms, b_by = bound(nb, ops)
+        log(f"phase 2g sa_walk {tag} (N={len(ks)}, {idx.idt}): "
+            f"max_abs_err={err}; {st['rounds']} rounds (the longest walk), "
+            f"{st['steps']} steps, {st['sectors']} distinct O2 sectors, "
+            f"{st['sa_rows']} SA rows; kernel {ms:.4f} ms (median of 5), "
+            f"plain {plain_ms:.2f} ms (median of 3), CUDA events; bound "
+            f"{b_ms:.5f} ms by {b_by} ({nb} B, {ops} operations), "
+            f"{b_ms / ms:.4f} of the kernel's time; latency floor "
+            f"{st['rounds']} dependent sector loads, "
+            f"{ms * 1e3 / max(st['rounds'], 1):.3f} us a step")
+        if timed and idx is fm:
+            res["sa_walk"] = {"ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": b_ms, "bound_by": b_by}
+
+    q4, l4, _ = spy.fwd_calls["4"]
+    q2, l2, m2, s2 = spy.p2_call
+    edges = [0, fm.primary, fm.seq_len] + list(
+        range(0, fm.seq_len + 1, fm.sa_intv * 997))[:1000]
+    ks = torch.cat([spy.sa_ks.to(torch.int64),
+                    torch.tensor(edges, dtype=torch.int64,
+                                 device=spy.sa_ks.device)])
+    ones4 = torch.ones(len(q4), dtype=torch.int64, device=q4.device)
+    for idx in (fm, fm64):
+        p3_case("phase 4's first microbatch", idx, q4, l4, True)
+        pass_case("pass 2's first lanes of phase 4", idx, q2, l2, m2, False,
+                  s2, True)
+        pass_case("phase 4's first microbatch", idx, q4, l4, ones4, True,
+                  None, False)
+        sa_case("phase 4's first SA prefetch + edge indices", idx,
+                ks.to(idx.idt), True)
+    qa, la, _ = spy.fwd_calls["14a"]
+    p3_case("phase 14a's long reads", fm, qa, la, False)
+    pass_case("phase 14a's long reads", fm, qa, la,
+              torch.ones(len(qa), dtype=torch.int64, device=qa.device), True,
+              None, False)
+    wide_case(fm, spy.fwd_calls.pop("14c"), side, wide_out, one, worst, msl,
+              mi)
+    for name in LOOP_KERNELS:
+        r = res[name]
+        log(f"phase 2g {name}: {launches[name]} launches in phase 4's PE "
+            f"run; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, "
+            f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
+            f"({r['bound_ms'] / r['ms']:.4f} of the kernel's time), "
+            f"max_abs_err {worst[name]}")
+        r["max_abs_err"] = worst[name]
+    if any(worst.values()):
+        raise Failed(f"phase 2g: a loop kernel disagrees with its plain "
+                     f"version: {worst}")
+    return res
 
 
 # -- phases 12, 13: the record route and the launcher -------------------------
@@ -1163,7 +1576,7 @@ def phase14_long(work, ref, codes, spy, n, seed, smi) -> None:
              2 * n)):
         argv = opts + ["-t", "1", "-o", "out", ref] + fq
         d = os.path.join(work, tag.split()[1])
-        r = run_cli(d, argv, spy, "device")
+        r = run_cli(d, argv, spy, "device", capture="14a" if preset else None)
         report_run(tag, r, n_reads)
         require_c_chain(tag, r)
         t0 = time.time()
@@ -1187,20 +1600,12 @@ WIDE_BP = 66_000  # phase 14c: the wide read, past the 16-bit call words
 WIDE_BATCH = 16_384  # phase 14c: one microbatch, the wide read last
 
 
-def phase14_wide(work, ref, codes, short_reads, spy, seed, smi) -> None:
-    """14c: phase 7's first WIDE_BATCH - 1 SE reads and, last, a WIDE_BP
-    read off the genome (0.1% substitutions, no N) under MPIBWA_EXT=device:
-    every short read's lines equal a run on the short reads alone, the
-    wide read's equal the host spec engine's at its read id; the call words
-    are int64 and every pass launch reads its query row in place."""
+def wide_batch(work, codes, short_reads, seed) -> "tuple[str, str, int]":
+    """Phase 14c's FASTQ files (the short reads alone, and the short reads
+    with the wide read last) and the short reads' count: phase 7's first
+    WIDE_BATCH - 1 SE reads and a WIDE_BP read off the genome (0.1%
+    substitutions, no N)."""
     import _torch_toy as toy
-    from mpibwa_tpu_torch.core.fm import FMIndex
-    from mpibwa_tpu_torch.core.pipeline import process_seqs
-    from mpibwa_tpu_torch.core.refseq import RefSeq
-    from mpibwa_tpu_torch.io.fastq import read_fastq
-    from mpibwa_tpu_torch.ops import seeding
-    from mpibwa_tpu_torch.ops.fmd import DeviceFMIndex
-    from mpibwa_tpu_torch.pipeline.device_align import DeviceAligner
 
     rng = np.random.default_rng(seed)
     while True:
@@ -1213,41 +1618,101 @@ def phase14_wide(work, ref, codes, short_reads, spy, seed, smi) -> None:
     fq_w = os.path.join(work, "wide.fq")
     write_reads(fq_s, short)
     write_reads(fq_w, short + [("wide", toy.to_bases(wide))])
+    return fq_s, fq_w, len(short)
 
-    # forward steps of pass 1 (one extend1_fwd a step) and the extension
-    # callback's time, summed over the C sessions' threads
-    count = {"on": False, "steps": 0, "ext_rows_s": 0.0}
-    real = (DeviceFMIndex.extend1_fwd, seeding.forward_p3,
-            DeviceAligner._ext_rows)
 
-    def ext1(fm, *a):
-        count["steps"] += count["on"]
-        return real[0](fm, *a)
+def _die_with_parent(parent: int) -> None:
+    """In a side process: the kernel kills it when its parent dies (prctl
+    PR_SET_PDEATHSIG), however the parent ends; if the parent is already
+    gone, exit now."""
+    ctypes.CDLL("libc.so.6").prctl(1, signal.SIGKILL)
+    if os.getppid() != parent:
+        sys.exit(1)
 
-    def p3(*a):
-        count["on"] = True
-        try:
-            return real[1](*a)
-        finally:
-            count["on"] = False
+
+def start_plain_wide(ref: str, fq: str, out: str) -> subprocess.Popen:
+    """The plain forward_p3 over the wide read of phase 14c's batch alone
+    (the batch's last read, at the batch's width), on the CPU in a side
+    process (this script with --plain-wide), so that its 62,708 host-loop
+    rounds overlap the phases after 15 instead of adding to the run. A
+    lane's outputs do not depend on the other lanes, so phase 2g holds the
+    kernel over the whole batch to the plain loop over the short reads (on
+    the card) followed by what this process writes to out. In process on
+    an H100 80GB HBM3 (700 W) the wide lane's rounds took 320 s (5.1 ms a
+    round); the whole batch on one CPU thread did not end in 600 s."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    with open(out + ".log", "w") as fh:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--plain-wide", ref,
+             fq, out, str(os.getpid())], env=env, stdout=fh,
+            stderr=subprocess.STDOUT)
+
+
+def plain_wide(ref: str, fq: str, out: str, parent: str) -> int:
+    """--plain-wide: ops/seeding.forward_p3 on the CPU over the last read
+    of fq (B = 1), padded as the seeder pads it; its outputs, seconds and
+    steps (extend1_fwd calls, over-steps included) saved to out."""
+    _die_with_parent(int(parent))
+    from mpibwa_tpu_torch.core.opts import mem_opt_init
+    from mpibwa_tpu_torch.io.fastq import read_fastq
+    from mpibwa_tpu_torch.ops import seeding
+    from mpibwa_tpu_torch.ops.fmd import DeviceFMIndex
+    from mpibwa_tpu_torch.pipeline.device_seed import _pad_batch
+
+    torch.set_num_threads(1)
+    fm = DeviceFMIndex(host_index(ref), "cpu")
+    q, lens = _pad_batch([s.seq for s in read_fastq(fq)[-1:]])
+    opt = mem_opt_init()
+    steps = [0]
+    real = DeviceFMIndex.extend1_fwd
+
+    def ext1(*a):
+        steps[0] += 1
+        return real(*a)
+
+    DeviceFMIndex.extend1_fwd = ext1
+    t = time.perf_counter()
+    fwd, p3 = seeding.forward_p3(
+        fm, torch.from_numpy(q), torch.from_numpy(lens),
+        torch.ones(len(q), dtype=torch.int64), opt.min_seed_len,
+        opt.max_mem_intv)
+    arrays = {f"fwd_{n}": v.numpy() for n, v in zip(fwd._fields, fwd)}
+    arrays.update({f"p3_{n}": v.numpy() for n, v in zip(p3._fields, p3)})
+    np.savez(out, seconds=time.perf_counter() - t, steps=steps[0],
+             **arrays)
+    return 0
+
+
+def phase14_wide(work, ref, fq_s, fq_w, n_short, spy, smi) -> None:
+    """14c: wide_batch's reads under MPIBWA_EXT=device: every short read's
+    lines equal a run on the short reads alone, the wide read's equal the
+    host spec engine's at its read id; the call words are int64 and every
+    pass launch reads its query row in place."""
+    from mpibwa_tpu_torch.core.fm import FMIndex
+    from mpibwa_tpu_torch.core.pipeline import process_seqs
+    from mpibwa_tpu_torch.core.refseq import RefSeq
+    from mpibwa_tpu_torch.io.fastq import read_fastq
+    from mpibwa_tpu_torch.pipeline.device_align import DeviceAligner
+
+    # the extension callback's time, summed over the C sessions' threads
+    count = {"ext_rows_s": 0.0}
+    real = DeviceAligner._ext_rows
 
     def ext_rows(al, *a, **k):
         t = time.time()
         try:
-            return real[2](al, *a, **k)
+            return real(al, *a, **k)
         finally:
             count["ext_rows_s"] += time.time() - t
 
-    DeviceFMIndex.extend1_fwd, seeding.forward_p3 = ext1, p3
     DeviceAligner._ext_rows = ext_rows
     try:
         r = run_cli(os.path.join(work, "wide"), ["-t", "1", "-o", "out",
-                                                 ref, fq_w], spy, "device")
+                                                 ref, fq_w], spy, "device",
+                    capture="14c")
     finally:
-        (DeviceFMIndex.extend1_fwd, seeding.forward_p3,
-         DeviceAligner._ext_rows) = real
+        DeviceAligner._ext_rows = real
     widths, dtypes = list(spy.pass_widths), set(spy.word_dtypes)
-    n_short = len(short)
     report_run("phase 14c wide batch", r, n_short + 1)
     require_c_chain("phase 14c", r)
     st = r["seed_times"]
@@ -1256,12 +1721,11 @@ def phase14_wide(work, ref, codes, short_reads, spy, seed, smi) -> None:
         f"{len(widths)} pass launches, query rows {sorted(set(widths))} bp "
         f"(Lp = 0, read in place, past 12,288: "
         f"{all(w > 12_288 for w in widths)}); fwd1 "
-        f"{st.get('fwd1', 0.0):.3f} s over {count['steps']} steps "
-        f"({st.get('fwd1', 0.0) / max(count['steps'], 1) * 1e3:.3f} ms a "
-        f"step); _ext_rows {count['ext_rows_s']:.3f} s summed over the C "
-        f"sessions' threads; kernel launches {r['launches']}; peak device "
-        f"memory {r['peak'] / 2**30:.3f} GiB")
-    for k in ("extend", "bwd_pass"):
+        f"{st.get('fwd1', 0.0):.3f} s (its forward steps: phase 2g); "
+        f"_ext_rows {count['ext_rows_s']:.3f} s summed over the C sessions' "
+        f"threads; kernel launches {r['launches']}; peak device memory "
+        f"{r['peak'] / 2**30:.3f} GiB")
+    for k in MAIN_KERNELS:
         if r["launches"][k] <= 0:
             raise Failed(f"phase 14c: no {k} launch")
     if dtypes != {torch.int64} or not widths or min(widths) <= 12_288:
@@ -1368,6 +1832,43 @@ def backward_stages(r: dict, n_reads: int) -> str:
             f"{r['peak'] / 2**30:.3f} GiB")
 
 
+def phase15(work, argv, spy, base_sam, n_reads) -> None:
+    """The default in three turns (kernels, plain loops, kernels): in the
+    middle one the seeder's forward automata and SA walks run their plain
+    versions (Spy.plain, not a knob). Every SAM equal to phase 4's; the
+    kernel turns launch the three loop kernels and call no plain loop, the
+    plain turn the reverse. fwd1, p2_fwd and the SA walk (its calls timed
+    between two synchronizes, summed) of each turn."""
+    turns = []
+    for i, plain in enumerate((False, True, False)):
+        what = "plain loops" if plain else "kernels"
+        tag = f"phase 15 turn {i + 1} ({what})"
+        spy.plain, spy.time_sa = plain, True
+        try:
+            r = run_cli(os.path.join(work, f"pe_loops{i}"), argv, spy,
+                        "device")
+        finally:
+            spy.plain, spy.time_sa = False, False
+        require_c_chain(tag, r)
+        n = [r["launches"][k] for k in LOOP_KERNELS]
+        ok = (r["sam"] == base_sam
+              and (r["plain_calls"] > 0 and not any(n) if plain
+                   else r["plain_calls"] == 0 and all(n)))
+        st = r["seed_times"]
+        log(f"{tag}: {backward_stages(r, n_reads)}; SA walk "
+            f"{r['sa_s']:.3f} s over {r['sa_calls']} calls (a synchronize "
+            f"before and after each); loop kernel launches "
+            f"{dict(zip(LOOP_KERNELS, n))}, plain loop calls "
+            f"{r['plain_calls']}; SAM == phase 4's: {r['sam'] == base_sam}")
+        if not ok:
+            raise Failed(f"{tag}: wrong SAM or wrong route")
+        turns.append((st.get("fwd1", 0.0), st.get("p2_fwd", 0.0), r["sa_s"],
+                      r["align"]))
+    log("phase 15 kernels / plain loops / kernels: " + "; ".join(
+        f"{name} {' / '.join(f'{t[j]:.3f}' for t in turns)} s"
+        for j, name in enumerate(("fwd1", "p2_fwd", "SA walk", "align"))))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--pairs", type=int, default=50_000)
@@ -1378,11 +1879,28 @@ def main() -> int:
                     help="pairs of the traced runs of phase 10")
     ap.add_argument("--long-reads", type=int, default=20,
                     help="reads of phase 14a and pairs of phase 14b")
+    ap.add_argument("--plain-wide", nargs=4,
+                    metavar=("REF", "FQ", "OUT", "PARENT_PID"),
+                    help="the side process of phase 2g (plain_wide)")
     args = ap.parse_args()
+    if args.plain_wide:
+        sys.path.insert(0, REPO)
+        return plain_wide(*args.plain_wide)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    try:
+        return smoke(args)
+    finally:
+        for proc in SIDE:  # stop every side process, whatever happened
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+def smoke(args) -> int:
+    """Every phase, in order; returns 0 or raises Failed."""
     sys.path.insert(0, REPO)
     sys.path.insert(0, os.path.join(REPO, "tests"))
     import _torch_toy
@@ -1425,14 +1943,16 @@ def main() -> int:
     base = ["-t", "1", "-o", "out", ref]
     # phase 4: the main path, extension DP and backward passes in kernels
     pe = run_cli(os.path.join(work, "pe_device"),
-                 base + [paths["r1"], paths["r2"]], spy, "device")
+                 base + [paths["r1"], paths["r2"]], spy, "device",
+                 capture="4")
     n_pe = 2 * args.pairs
     mapped = check_sam(pe["sam"], n_pe)
-    launches = {k: pe["launches"][k] for k in ("extend", "bwd_pass")}
+    launches = {k: pe["launches"][k] for k in MAIN_KERNELS}
     report_run("phase 4 PE device", pe, n_pe)
     require_c_chain("phase 4", pe)
-    log(f"phase 4 mapped share {mapped:.4f}")
-    for k in ("extend", "bwd_pass"):
+    log(f"phase 4 mapped share {mapped:.4f}; plain loops called "
+        f"{pe['plain_calls']} times")
+    for k in MAIN_KERNELS:
         report_sizes("phase 4", pe, k)
         if launches[k] <= 0:
             raise Failed(f"the main path launched no {k} kernel")
@@ -1469,7 +1989,7 @@ def main() -> int:
     check_sam(se["sam"], args.pairs)
     report_run("phase 7 SE device", se, args.pairs)
     require_c_chain("phase 7", se)
-    for k in ("extend", "bwd_pass"):
+    for k in MAIN_KERNELS:
         if se["launches"][k] <= 0:
             raise Failed(f"the SE main path launched no {k} kernel")
     hargv = base + [paths["h1"]]
@@ -1504,7 +2024,7 @@ def main() -> int:
                    {"MPIBWA_BWD": "contig"}, ["extend"], pe["sam"], n_pe,
                    absent=["bwd_pass"])
     r9d = knob_run("phase 9 PE default", os.path.join(work, "pe_default"),
-                   pe_argv, spy, {}, ["extend", "bwd_pass"], pe["sam"], n_pe)
+                   pe_argv, spy, {}, MAIN_KERNELS, pe["sam"], n_pe)
     report_sizes("phase 9 default", r9d, "bwd_pass")
     # phase 11: the v8 engine on the main path (no kernel of its own)
     r11 = knob_run("phase 11 PE MPIBWA_BWD=v8", os.path.join(work, "pe_v8"),
@@ -1513,7 +2033,7 @@ def main() -> int:
     log(f"phase 11 v8: {backward_stages(r11, n_pe)}")
     r9d2 = knob_run("phase 9 PE default again",
                     os.path.join(work, "pe_default2"), pe_argv, spy, {},
-                    ["extend", "bwd_pass"], pe["sam"], n_pe)
+                    MAIN_KERNELS, pe["sam"], n_pe)
     rate = {k: n_pe / r["align"] for k, r in
             (("phase 4", pe), ("flat", r9f), ("contig", r9c),
              ("default", r9d), ("v8", r11), ("default again", r9d2))}
@@ -1538,12 +2058,19 @@ def main() -> int:
     log(f"phase 9 MPIBWA_BWD=contig {'beats' if beats else 'does not beat'} "
         f"both of its neighbours: {rate['flat']:.1f} / {rate['contig']:.1f} "
         f"/ {rate['default']:.1f} PE reads/s (flat, contig, default)")
+    # phase 15: the default with the three loops' plain versions, in turns
+    phase15(work, pe_argv, spy, pe["sam"], n_pe)
+    # phase 14c's batch, and the plain loop over it in a side process
+    fq_s, fq_w, n_short = wide_batch(work, codes, r1l, args.seed + 3)
+    wide_out = os.path.join(work, "plain_wide.npz")
+    side = start_plain_wide(ref, fq_w, wide_out)
+    SIDE.append(side)
     # phases 12 and 13: the record route and the launcher on the first pairs
     phase12(work, base, paths, spy, default_sam, args.host_pairs, smi)
     phase13(work, ref, paths, spy, args.host_pairs)
     # phase 14: long and wide reads
     phase14_long(work, ref, codes, spy, args.long_reads, args.seed + 2, smi)
-    phase14_wide(work, ref, codes, r1l, spy, args.seed + 3, smi)
+    phase14_wide(work, ref, fq_s, fq_w, n_short, spy, smi)
     del codes
     # phase 10: the default run and phase 8's again on the first pairs,
     # traced; every traced SAM equals the first one (and phase 4's when
@@ -1559,7 +2086,7 @@ def main() -> int:
     log(f"phase 10 traced runs on the first {n_tr} pairs")
     traced = {}
     for kernels, ph, d, kn in (
-            (["extend", "bwd_pass"], "default", "pe_device_traced", {}),
+            (MAIN_KERNELS, "default", "pe_device_traced", {}),
             (["occ4_extend"], "phase 8", "pe_occ4_traced", knobs8)):
         got = profiled_run(f"phase 10 ({ph})", os.path.join(work, d),
                            t_argv, spy, kn, kernels, base_sam)
@@ -1601,14 +2128,15 @@ def main() -> int:
                "occ4_extend": phase2c(rng, fm, spy.occ4_ik, _torch_toy),
                "bwd_pass": phase2d(fm, spy.bwd_call, _torch_toy,
                                    int(rng.integers(1 << 30)))}
-    phase2e(ref, fm, [s for pair in zip(
+    fm64 = phase2e(ref, fm, [s for pair in zip(
         _torch_toy.load_reads(paths["r1"], limit=WIDE_READS // 2),
         _torch_toy.load_reads(paths["r2"], limit=WIDE_READS // 2))
         for s in pair])
     phase2f(spy.rows_call, pe["seed_times"])
+    results.update(phase2g(fm, fm64, spy, launches, side, wide_out))
 
     log(f"total {time.time() - t_start:.1f}s")
-    # no single PyTorch call computes any of the three functions
+    # no single PyTorch call computes any of the six functions
     log(json.dumps({"kernels": [
         dict(KERNELS[k], launches=launches[k], library_ms=None,
              run_pairs=n_tr, **traced[k], **results[k])

@@ -8,6 +8,10 @@ totals, the sampled SA and the packed forward reference. The classic
 the host and are uploaded as one fused (n_blocks, 12) int32 table only when
 an engine asks for them (fused_blocks(): MPIBWA_PALLAS=1, the pass kernel).
 
+The SA walk (``sa_lookup``) is one launch of csrc/sa_walk.cu on the card
+(ops/sa_cuda.py); ``_sa_lookup16`` below is its plain version, a host loop
+that the tests and the CPU route run.
+
 Positions are int32 when the doubled genome fits (seq_len + 2 < 2**31)
 and int64 otherwise, or with ``force_wide``; counts and gather indices
 into the O2 table fit int32 either way. Gathers clamp their indices into
@@ -17,6 +21,7 @@ real row and are masked afterwards.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import numpy as np
@@ -94,14 +99,15 @@ class DeviceFMIndex:
         self.L2 = put(state["L2"], self.np_idt)
         self.sa = put(state["sa"], self.np_idt)
         self.pac = put(state["pac"], np.uint8)
-        # host copy of L2[0..3]: the CUDA wrappers pass them by value
-        self.l2_host = [int(v) for v in np.asarray(state["L2"])[:4]]
+        # host copy of L2[0..4]: the CUDA wrappers pass them by value
+        self.l2_host = [int(v) for v in np.asarray(state["L2"])[:5]]
         occ, data = state.get("occ"), state.get("data")
         self._host_occ = None if occ is None else np.asarray(occ, np.int32)
         self._host_data = None if data is None else np.asarray(data,
                                                                np.uint32)
         self._fused = None
         self._fused_args = None
+        self._o2_args = None
 
     def o2_tables(self) -> torch.Tensor:
         return self._o2
@@ -130,8 +136,21 @@ class DeviceFMIndex:
         if self._fused_args is None:
             t = self.fused_blocks()
             self._fused_args = (t.device, (t.data_ptr(), t.shape[0],
-                                           *self.l2_host, self.primary))
+                                           *self.l2_host[:4], self.primary))
         return self._fused_args
+
+    def o2_args(self) -> tuple:
+        """(wide, O2 pointer, rows, L2[0..4] as a host int64 array, primary,
+        seq_len): the leading arguments of the O2 kernels' C entry points
+        (csrc/fwd_automata.cu, csrc/sa_walk.cu), worked out once."""
+        if self._o2_args is None:
+            o2 = self._o2
+            if o2.data_ptr() % 16:
+                raise ValueError("the O2 table must be 16-byte aligned")
+            self._o2_args = (int(self.idt == torch.int64), o2.data_ptr(),
+                             o2.shape[0], (ctypes.c_longlong * 5)(
+                                 *self.l2_host), self.primary, self.seq_len)
+        return self._o2_args
 
     # -- batched occ4 over the classic blocks --------------------------------
 
@@ -348,16 +367,27 @@ class DeviceFMIndex:
     # -- batched SA lookup (bwt_sa, bwt.c:86-96) -----------------------------
 
     def sa_lookup(self, ks: torch.Tensor) -> torch.Tensor:
-        """(N,) SA indices -> (N,) idt positions, by the O2 walk."""
-        return _sa_lookup16(self._o2, self.L2, self.primary, self.seq_len,
-                            self.sa, self.sa_intv, ks.to(self.idt))
+        """(N,) SA indices -> (N,) idt positions, by the O2 walk: one
+        launch of the SA walk kernel on a CUDA index
+        (ops/sa_cuda.sa_walk_kernel), the plain _sa_lookup16 on the CPU."""
+        from mpibwa_tpu_torch.ops import sa_cuda
+
+        return sa_cuda.sa_walk_kernel(self, ks.to(self.idt))
 
 
 def _sa_lookup16(o2, l2, primary: int, seq_len: int, sa, sa_intv: int,
-                 ks: torch.Tensor) -> torch.Tensor:
+                 ks: torch.Tensor, stats: dict = None) -> torch.Tensor:
     """bwt_sa walk (bwt.c:86-96) via the O2 table: per step one row gather
     for the BWT base word and one single-base rank row gather (_occ_c2).
-    Position arithmetic runs in the dtype of ks; counts stay int32."""
+    Position arithmetic runs in the dtype of ks; counts stay int32.
+
+    The plain version of csrc/sa_walk.cu: a host loop of small torch ops
+    over all indices in lockstep, with a host check every
+    SA_STEPS_PER_SYNC steps. The tests and the CPU route use it; on the
+    card every walk is one launch of the kernel. A stats dict, where given,
+    receives what the walk needs, for a bound: its rounds (the longest
+    walk), steps, distinct O2 sub-blocks (32-byte sectors) and distinct SA
+    rows."""
     idt = ks.dtype
     mask = sa_intv - 1  # sa_intv is a power of two
     n_rows = o2.shape[0]
@@ -381,10 +411,21 @@ def _sa_lookup16(o2, l2, primary: int, seq_len: int, sa, sa_intv: int,
     k = ks
     steps = torch.zeros_like(ks)
     act = (k & mask) != 0
+    rounds = torch.zeros((), dtype=torch.int64, device=ks.device)
+    blocks = []
     while bool(act.any()):
         for _ in range(SA_STEPS_PER_SYNC):
+            if stats is not None:
+                rounds += act.any().to(torch.int64)
+                blocks.append((k - (k > primary).to(idt))[act] >> 4)
             k = torch.where(act, inv_psi(k), k)
             steps = steps + act.to(idt)
             act = (k & mask) != 0
-    base = sa[(k // sa_intv).to(torch.int64).clamp(0, sa.shape[0] - 1)]
-    return steps + base.to(idt)  # sa[0] == -1 wraps like the C uint64
+    row = (k // sa_intv).to(torch.int64).clamp(0, sa.shape[0] - 1)
+    if stats is not None:
+        stats["rounds"] = int(rounds)
+        stats["steps"] = int(steps.sum())
+        stats["sectors"] = (int(torch.unique(torch.cat(blocks)).numel())
+                            if blocks else 0)
+        stats["sa_rows"] = int(torch.unique(row).numel())
+    return steps + sa[row].to(idt)  # sa[0] == -1 wraps like the C uint64

@@ -10,6 +10,11 @@ Per-read outputs land in flat buffers with one spare "dump" slot at the
 end: lanes that must not write scatter there, and the slot is sliced off
 (JAX's drop-mode scatter). Buffers overflow into per-read flags; flagged
 reads take the scalar host engine.
+
+These host loops are the plain versions of the CUDA kernels of
+csrc/fwd_automata.cu (ops/fwd_cuda.py), which run each loop in one launch
+on the card. The tests and the CPU route run them; nothing on the card's
+main path calls them.
 """
 
 from __future__ import annotations
@@ -160,6 +165,36 @@ class _Fwd:
                       call_start, call_len, self.n_calls, self.overflow)
 
 
+class _Trace:
+    """What a run of the automata needs, for a bound: the rounds in which a
+    lane was not done (the longest lane's steps), the forward extensions
+    the lanes needed and the distinct O2 sub-blocks (32-byte sectors) they
+    read, at ik1 - 1 and ik1 - 1 + ik2 (ops/fmd.extend1_fwd)."""
+
+    def __init__(self, fm, dev):
+        self.primary = fm.primary
+        self.rounds = torch.zeros((), dtype=torch.int64, device=dev)
+        self.steps = torch.zeros((), dtype=torch.int64, device=dev)
+        self.blocks = []
+
+    def round(self, active: torch.Tensor) -> None:
+        self.rounds += active.any().to(torch.int64)
+
+    def extend(self, need: torch.Tensor, ik1: torch.Tensor,
+               ik2: torch.Tensor) -> None:
+        kq = ik1[need] - 1
+        for pos in (kq, kq + ik2[need]):
+            k = pos.clamp(min=0)
+            self.blocks.append((k - (k >= self.primary).to(k.dtype)) >> 4)
+        self.steps += need.sum()
+
+    def done(self, stats: dict) -> None:
+        stats["rounds"] = int(self.rounds)
+        stats["steps"] = int(self.steps)
+        stats["sectors"] = (int(torch.unique(torch.cat(self.blocks)).numel())
+                            if self.blocks else 0)
+
+
 def _query_at(qflat: torch.Tensor, L: int, lane: torch.Tensor,
               pos: torch.Tensor) -> torch.Tensor:
     """Base of read `lane` at pos, 4 outside the read buffer. int32."""
@@ -169,13 +204,19 @@ def _query_at(qflat: torch.Tensor, L: int, lane: torch.Tensor,
 
 def forward_pass(fm, q: torch.Tensor, lens: torch.Tensor,
                  min_intv: torch.Tensor, chain: bool = True,
-                 starts: torch.Tensor = None) -> FwdOut:
+                 starts: torch.Tensor = None, stats: dict = None) -> FwdOut:
     """Run chained (pass 1) or single (pass 2) smem1 forward loops.
 
     q: (B, L) uint8 nt4 codes (pad >= 4); lens: (B,) int32; min_intv: (B,)
     int64; starts: (B,) int32 initial x (default 0). chain=True: after each
     call, continue from the returned position; chain=False: exactly one
-    call per lane."""
+    call per lane.
+
+    The plain version of ops/fwd_cuda.forward_pass_kernel: a host loop of
+    small torch ops, every lane a step a round, with a host check every
+    ROUNDS_PER_SYNC rounds. The tests and the CPU route run it. A stats
+    dict, where given, receives the run's rounds, needed extensions and
+    distinct O2 sectors (_Trace)."""
     B, L = q.shape
     dev = q.device
     lane = torch.arange(B, dtype=torch.int64, device=dev)
@@ -185,25 +226,37 @@ def forward_pass(fm, q: torch.Tensor, lens: torch.Tensor,
     x0 = (torch.zeros(B, dtype=torch.int32, device=dev) if starts is None
           else starts.to(torch.int32))
     st = _Fwd(fm, B, x0, dev)
+    trace = None if stats is None else _Trace(fm, dev)
     while bool((st.kind != DONE).any()):
         for _ in range(ROUNDS_PER_SYNC):
+            if trace is not None:
+                trace.round(st.kind != DONE)
             qx = _query_at(qflat, L, lane, st.x)
             beg, x = st.seek(qx, lens, lane, chain)
             st.begin(beg, x, fm.set_intv(qx.clamp(0, 3)))
             qi = _query_at(qflat, L, lane, st.i)
+            if trace is not None:
+                trace.extend((st.kind == EXT) & (st.i < lens) & (qi <= 3),
+                             st.ik1, st.ik2)
             cb = 3 - qi.clamp(0, 3)
             nk = fm.extend1_fwd(st.ik0, st.ik1, st.ik2, cb)
             st.step(qi, lens, minv, nk, lane, chain)
+    if trace is not None:
+        trace.done(stats)
     return st.out(B)
 
 
 def forward_p3(fm, q: torch.Tensor, lens: torch.Tensor,
-               min_intv: torch.Tensor, min_seed_len: int, max_intv: int
-               ) -> "tuple[FwdOut, Pass3Out]":
+               min_intv: torch.Tensor, min_seed_len: int, max_intv: int,
+               stats: dict = None) -> "tuple[FwdOut, Pass3Out]":
     """The chained pass-1 forward loop and the pass-3 sweep
     (bwt_seed_strategy1, bwt.c:358-379) in one loop, sharing each round's
     query reads, set_intv and forward extension between the two automata.
-    Exactly forward_pass(chain=True) + pass 3."""
+    Exactly forward_pass(chain=True) + pass 3.
+
+    The plain version of ops/fwd_cuda.forward_p3_kernel, a host loop like
+    forward_pass's (stats too, over both automata). The tests and the CPU
+    route run it."""
     B, L = q.shape
     dev = q.device
     idt, i32 = fm.idt, torch.int32
@@ -224,8 +277,11 @@ def forward_p3(fm, q: torch.Tensor, lens: torch.Tensor,
     sx = torch.zeros(S3 + 1, dtype=i32, device=dev)
     si = torch.zeros(S3 + 1, dtype=i32, device=dev)
 
+    trace = None if stats is None else _Trace(fm, dev)
     while bool(((st.kind != DONE) | (pkind != DONE)).any()):
         for _ in range(ROUNDS_PER_SYNC):
+            if trace is not None:
+                trace.round((st.kind != DONE) | (pkind != DONE))
             # seek bases for both automata (one gather)
             q2 = _query_at(qflat, L, torch.cat([lane, lane]),
                            torch.cat([st.x, px]))
@@ -247,6 +303,13 @@ def forward_p3(fm, q: torch.Tensor, lens: torch.Tensor,
             q2 = _query_at(qflat, L, torch.cat([lane, lane]),
                            torch.cat([st.i, pi]))
             qi, pqi = q2[:B], q2[B:]
+            if trace is not None:
+                trace.extend(torch.cat([(st.kind == EXT) & (st.i < lens)
+                                        & (qi <= 3),
+                                        (pkind == EXT) & (pi < lens)
+                                        & (pqi <= 3)]),
+                             torch.cat([st.ik1, pk[1]]),
+                             torch.cat([st.ik2, pk[2]]))
             ek = fm.extend1_fwd(torch.cat([st.ik0, pk[0]]),
                                 torch.cat([st.ik1, pk[1]]),
                                 torch.cat([st.ik2, pk[2]]),
@@ -279,4 +342,6 @@ def forward_p3(fm, q: torch.Tensor, lens: torch.Tensor,
     sinf = ((sx[:S3].to(torch.int64) << 32) | si[:S3].to(torch.int64))
     p3 = Pass3Out(seeds[:, :S3].reshape(3, B, S3_CAP).permute(1, 2, 0)
                   .contiguous(), sinf.reshape(B, S3_CAP), pn, pov)
+    if trace is not None:
+        trace.done(stats)
     return st.out(B), p3

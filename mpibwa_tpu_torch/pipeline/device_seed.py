@@ -1,7 +1,9 @@
 """Device-batched seed collection: exact mem_collect_intv on torch tensors.
 
 Counterpart of mpibwa_tpu/pipeline/device_seed.py. Drives the forward
-automata (ops/seeding.py) and a backward engine over a read batch and
+automata (ops/fwd_cuda.py: one kernel launch a pass on a CUDA device, the
+host loops of ops/seeding.py on the CPU) and a backward engine over a
+read batch and
 assembles, per read, the same interval list that core.chain.collect_intv
 produces (collect_batch), or the same intervals as flat arrays
 (collect_flat). Reads that overflow a device buffer fall back to the
@@ -36,6 +38,7 @@ import torch
 
 from mpibwa_tpu_torch.core.sortutil import ks_introsort
 from mpibwa_tpu_torch.ops import backward8 as B8
+from mpibwa_tpu_torch.ops import fwd_cuda
 from mpibwa_tpu_torch.ops import seeding
 from mpibwa_tpu_torch.ops import seeding_flat as SF
 from mpibwa_tpu_torch.ops.pulls import pull_prefix, pull_prefix_async
@@ -144,9 +147,9 @@ def _fused_p1_p3(fm, qd, lensd, min_seed_len, max_intv):
     B, L = qd.shape
     dev = qd.device
     i32, i64 = torch.int32, torch.int64
-    fwd, p3 = seeding.forward_p3(fm, qd, lensd,
-                                 torch.ones(B, dtype=i64, device=dev),
-                                 min_seed_len, max_intv)
+    fwd, p3 = fwd_cuda.forward_p3_kernel(
+        fm, qd, lensd, torch.ones(B, dtype=i64, device=dev), min_seed_len,
+        max_intv)
     counts = torch.stack([fwd.overflow.to(i32), fwd.n_calls.to(i32),
                           p3.overflow.to(i32), p3.n_seeds.to(i32)], dim=1)
     C = fwd.call_x.shape[1]
@@ -330,7 +333,7 @@ class DeviceSeeder:
             return (ivals1, infos1, fallback, ncl, calls_np,
                     (counts[:, 2], n3_all, seeds_thunk))
         min1 = torch.ones(B, dtype=torch.int64, device=qd.device)
-        fwd = seeding.forward_pass(self.dfm, qd, lensd, min1, True)
+        fwd = fwd_cuda.forward_pass_kernel(self.dfm, qd, lensd, min1, True)
         packed = _pack_fwd(fwd).cpu().numpy()
         C = (packed.shape[1] - 2) // 3
         fallback = packed[:, 0] != 0
@@ -401,9 +404,9 @@ class DeviceSeeder:
                 starts2[ln] = x
                 min2[ln] = mi
             q2d = self._upload(q2)
-            fwd2 = seeding.forward_pass(self.dfm, q2d, self._upload(lens2),
-                                        self._upload(min2), False,
-                                        self._upload(starts2))
+            fwd2 = fwd_cuda.forward_pass_kernel(
+                self.dfm, q2d, self._upload(lens2), self._upload(min2),
+                False, self._upload(starts2))
             p2 = _pack_fwd1(fwd2).cpu().numpy()
             for ln in np.nonzero(p2[:, 0])[0]:
                 if ln < len(lanes2):
@@ -558,9 +561,9 @@ class DeviceSeeder:
             q2d = torch.where(self._upload(valid2)[:, None],
                               qd[self._upload(row_idx)], 4).to(torch.uint8)
             t2 = time.time()
-            fwd2 = seeding.forward_pass(self.dfm, q2d, self._upload(lens2),
-                                        self._upload(min2), False,
-                                        self._upload(starts2))
+            fwd2 = fwd_cuda.forward_pass_kernel(
+                self.dfm, q2d, self._upload(lens2), self._upload(min2),
+                False, self._upload(starts2))
             done2 = False
             if _backward_engine(self.dfm) == "v8" and "e" in self._p2_est:
                 # speculative route: lane tables on the device at a
