@@ -85,8 +85,14 @@ Phases, one printed line (or more) each:
      min_intv > 1) and chained on phase 4's first microbatch and 14a's
      reads; the SA walk on phase 4's first prefetch plus 0, primary,
      seq_len and multiples of sa_intv; phase 4's inputs again on phase
-     2e's int64 index; kernel and plain times (CUDA events, medians), the
-     bound and the dependent-latency floor (the longest lane's steps);
+     2e's int64 index; the kernels' registers and spills (-Xptxas -v); a
+     dependent-load probe (csrc/sa_walk.cu) over the O2 table: one
+     thread, a warp on every SM, every SM full; kernel times (the kernel
+     alone: launches back to back into preallocated outputs), the
+     wrapper's call and the plain loop (CUDA events, medians), the bound,
+     the latency floor (the longest lane's steps times the probe's lone
+     dependent load) and the random-load floor (the steps' sector loads at
+     the probe's full-card rate);
   12. the record route (the route without the C runtime's chain and
      finalization: MPIBWA_FINAL=python MPIBWA_CHAIN=python) on phase 6's
      pairs, PE and SE: SAM byte-identical to phases 6 and 7's port runs on
@@ -123,7 +129,11 @@ line of kernel results, and last
 
 Usage: python3 chip_smoke.py [--pairs N] [--host-pairs N] [--genome-bp N]
                              [--seed S] [--traced-pairs N] [--long-reads N]
-(--host-pairs sets the pairs of phases 6, 7, 12 and 13.)
+       python3 chip_smoke.py --fwd-turns DIR [DIR ...] [--genome-bp N]
+(--host-pairs sets the pairs of phases 6, 7, 12 and 13. --fwd-turns times
+kernels 4 and 5 against the fwd_automata.cu of each DIR, with the o2.cuh
+beside it, in turns on the same inputs, and runs no other phase: see
+fwd_turns.)
 Exits non-zero without a usable CUDA device, on any mismatch and on any
 error.
 """
@@ -135,6 +145,7 @@ import ctypes
 import functools
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -1183,7 +1194,85 @@ def fwd_bound(st: dict, q, lens, fwd, p3=None, starts: bool = False
     return bound(nbytes, ops) + (nbytes, ops)
 
 
-def wide_case(fm, call, side, wide_out, one, worst, msl, mi) -> None:
+def launch_ms(go, reps: int) -> float:
+    """A kernel's own time: `reps` launches back to back (go, into the same
+    outputs) between two CUDA events, over reps; the median of 3 such runs
+    after a warm-up. The wrapper's output allocation and zero-fill, and its
+    host work, are left out."""
+    go()
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            go()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times))
+
+
+def loop_launcher(name, idx, *a, lib=None):
+    """A launch of loop kernel `name` through the C entry point its wrapper
+    calls (or the same symbol of the ctypes library `lib`: --fwd-turns),
+    on the wrapper's arguments, into zero-filled outputs allocated once
+    here (``go.out``; a kernel's outputs do not depend on what they held
+    before). Not counted: the wrapper is not called."""
+    from mpibwa_tpu_torch.ops import _build, fwd_cuda, sa_cuda
+    from mpibwa_tpu_torch.ops.seeding import C_CAP, F_CAP, S3_CAP, Pass3Out
+
+    dev = idx.o2_tables().device
+    if name == "sa_walk":
+        (ks,) = a
+        out = torch.zeros_like(ks)
+        args = (idx.sa.data_ptr(), idx.sa.shape[0],
+                idx.sa_intv.bit_length() - 1, ks.data_ptr(), len(ks),
+                out.data_ptr())
+        entry = sa_cuda.ENTRY
+        keep = (ks,)
+    else:
+        q, lens, minv = fwd_cuda._inputs(idx, *a[:3])
+        B, L = q.shape
+        fwd = fwd_cuda._fwd_out(idx, B, q.device)
+        keep = (q, lens, minv, fwd)
+        if name == "forward_p3":
+            p3 = Pass3Out(torch.zeros((B, S3_CAP, 3), dtype=idx.idt,
+                                      device=dev),
+                          torch.zeros((B, S3_CAP), dtype=torch.int64,
+                                      device=dev),
+                          torch.zeros(B, dtype=torch.int32, device=dev),
+                          torch.zeros(B, dtype=torch.bool, device=dev))
+            out = (fwd, p3)
+            args = (q.data_ptr(), B, L, lens.data_ptr(), minv.data_ptr(),
+                    F_CAP, C_CAP, S3_CAP, *(int(v) for v in a[3:]),
+                    *(t.data_ptr() for t in fwd), *(t.data_ptr() for t in p3))
+            entry = fwd_cuda.ENTRY_P3
+        else:
+            chain, starts = a[3:]
+            if starts is not None:
+                starts = starts.to(torch.int32).contiguous()
+                keep += (starts,)
+            args = (q.data_ptr(), B, L, lens.data_ptr(), minv.data_ptr(),
+                    None if starts is None else starts.data_ptr(),
+                    int(chain), F_CAP, C_CAP, *(t.data_ptr() for t in fwd))
+            entry = fwd_cuda.ENTRY_PASS
+            out = fwd
+    if lib is None:
+        fn = _build.entry(*entry)
+    else:
+        fn = getattr(lib, entry[1])
+        fn.argtypes, fn.restype = entry[2], ctypes.c_int
+
+    def go():
+        if _build.launch_on(dev, fn, *idx.o2_args(), *args) != 0:
+            raise Failed(f"a timing launch of {name} failed")
+    go.keep, go.out = keep, out  # the tensors behind the pointers
+    return go
+
+
+def wide_case(fm, call, side, wide_out, one, worst, msl, mi,
+              floor) -> None:
     """forward_p3 on phase 14c's batch against the plain loop: over the
     short reads on the card here, and over the wide read (the last lane)
     as the side process wrote it (plain_wide, on the CPU)."""
@@ -1193,8 +1282,7 @@ def wide_case(fm, call, side, wide_out, one, worst, msl, mi) -> None:
     ones = torch.ones(len(q), dtype=torch.int64, device=q.device)
     got = one("forward_p3", fwd_cuda.forward_p3_kernel, fm, q, lens, ones,
               msl, mi)
-    ms = median_ms(lambda: fwd_cuda.forward_p3_kernel(fm, q, lens, ones, msl,
-                                                      mi), 3)
+    ms = launch_ms(loop_launcher("forward_p3", fm, q, lens, ones, msl, mi), 3)
     t = time.perf_counter()
     short = seeding.forward_p3(fm, q[:-1], lens[:-1], ones[:-1], msl, mi)
     torch.cuda.synchronize()
@@ -1226,8 +1314,78 @@ def wide_case(fm, call, side, wide_out, one, worst, msl, mi) -> None:
         f"alone on the CPU in a side process ({float(d['seconds']):.1f} s, "
         f"{steps} rounds with up to 3 over-steps; waited {waited:.1f} s for "
         f"it here); fallback lanes {int(want[0].overflow.sum())}, pass-3 "
-        f"overflow {int(want[1].overflow.sum())}; kernel {ms:.4f} ms (median "
-        f"of 3, CUDA events), {ms * 1e3 / max(steps, 1):.3f} us a step")
+        f"overflow {int(want[1].overflow.sum())}; kernel {ms:.4f} ms (3 "
+        f"launches back to back, median of 3, CUDA events), "
+        f"{ms * 1e3 / max(steps, 1):.3f} us a step; "
+        f"{floor(ms, steps)}")
+
+
+PROBE = (("one thread", 1, 1, 4000), ("a warp on every SM", None, 32, 2000),
+         ("1,024 threads on every SM", None, 1024, 500))
+
+
+def latency_probe(fm) -> "tuple[float, float]":
+    """The dependent-load probe of csrc/sa_walk.cu on the index's O2
+    table: one thread, one warp on each SM, then every SM full, each
+    thread chasing random sectors, every load's address a hash of the row
+    before (CUDA events, median of 5). Returns one thread's us a dependent
+    load (the latency floor's unit) and the full card's random loads a
+    second."""
+    from mpibwa_tpu_torch.ops import _build
+
+    fn = _build.entry("sa_walk", "mpibwa_latency_probe",
+                      [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+                       ctypes.c_void_p, ctypes.c_void_p])
+    o2 = fm.o2_tables()
+    sms = torch.cuda.get_device_properties(o2.device).multi_processor_count
+    us = {}
+    for tag, blocks, threads, steps in PROBE:
+        blocks = blocks or sms
+        out = torch.empty(blocks * threads, dtype=torch.int32,
+                          device=o2.device)
+        seeds = iter(range(1, 1000))
+
+        def go():  # a new seed each launch: no sector left in the L2
+            rc = _build.launch_on(o2.device, fn, o2.data_ptr(), o2.shape[0],
+                                  blocks, threads, steps, next(seeds) * 7919,
+                                  out.data_ptr())
+            if rc != 0:
+                raise Failed(f"phase 2g: the latency probe's launch failed "
+                             f"(cudaError {rc})")
+
+        ms = median_ms(go, 5)
+        us[tag] = ms * 1e3 / steps
+        rate = blocks * threads * steps / ms * 1e3
+        log(f"phase 2g latency probe, {tag} ({blocks} x {threads} threads, "
+            f"{steps} dependent 8-byte loads each over the {o2.shape[0]}-row "
+            f"O2 table, {o2.numel() * 4 / 1e9:.3f} GB): {us[tag]:.4f} us a "
+            f"load, {rate / 1e9:.3f} G loads a second (median of 5, CUDA "
+            f"events)")
+    return us["one thread"], rate
+
+
+def ptxas_lines(name: str) -> "list[str]":
+    """Registers and spills of each kernel of csrc/<name>.cu, from nvcc's
+    -Xptxas -v report of this run's build."""
+    from mpibwa_tpu_torch.ops import _build
+
+    out = []
+    for fn, body in re.findall(r"Compiling entry function '(\S+)' for "
+                               r"'sm_90a'(.*?)(?=Compiling entry|\Z)",
+                               _build.build_logs.get(name, ""), re.S):
+        kernel = re.search(r"(forward_p3|forward_pass|sa_walk|latency_probe)"
+                           r"_kernel", fn)
+        ptype = ("int64" if "IxE" in fn else "int32" if "IiE" in fn
+                 else "")
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", body)
+        out.append(f"{kernel.group(0) if kernel else fn} {ptype}: "
+                   f"{regs.group(1) if regs else '?'} registers, "
+                   f"{spill.group(1) if spill else '?'} B spill stores, "
+                   f"{spill.group(2) if spill else '?'} B spill loads")
+    return out
 
 
 def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
@@ -1241,8 +1399,9 @@ def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
     14a's reads; the SA walk on phase 4's first prefetch plus 0, primary,
     seq_len and multiples of sa_intv; phase 4's inputs again on the int64
     index. Kernel and plain times (CUDA events, medians) at the main
-    path's shapes, each launch's bound and its dependent-latency floor
-    (the longest lane's steps, one dependent O2 sector load a step)."""
+    path's shapes, each launch's bound and its latency floor: the longest
+    lane's steps times one dependent O2 load, as the probe measured it
+    (latency_probe); the kernels' registers and spills."""
     from mpibwa_tpu_torch.core.opts import mem_opt_init
     from mpibwa_tpu_torch.ops import fwd_cuda, sa_cuda, seeding
     from mpibwa_tpu_torch.ops.fmd import _sa_lookup16
@@ -1257,6 +1416,21 @@ def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
     wrappers = Spy.kernel_wrappers()
     worst = {k: 0 for k in LOOP_KERNELS}
     res = {}
+    for name in ("fwd_automata", "sa_walk"):
+        for line in ptxas_lines(name):
+            log(f"phase 2g -Xptxas -v {name}.cu {line}")
+    lat_us, rate = latency_probe(fm)
+
+    def floor(ms, rounds, loads=None) -> str:
+        f_ms = rounds * lat_us / 1e3
+        line = (f"latency floor {rounds} dependent loads x {lat_us:.4f} us "
+                f"= {f_ms:.5f} ms, {f_ms / ms:.4f} of the kernel's time")
+        if loads is not None:  # the steps' sector loads at the probe's rate
+            r_ms = loads / rate * 1e3
+            line += (f"; random-load floor {loads} sector loads at "
+                     f"{rate / 1e9:.3f} G a second = {r_ms:.5f} ms, "
+                     f"{r_ms / ms:.4f} of the kernel's time")
+        return line
 
     def one(name, f, *a):
         n0 = wrappers[name].launches
@@ -1284,26 +1458,31 @@ def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
                 f"sectors; fallback lanes {int(want[0].overflow.sum())}, "
                 f"pass-3 overflow {int(want[1].overflow.sum())}; plain once "
                 f"{plain_s * 1e3:.1f} ms (counting on)")
+        ms = launch_ms(loop_launcher("forward_p3", idx, q, lens, ones, msl,
+                                     mi), 20 if timed else 3)
         if timed:
-            ms = median_ms(lambda: fwd_cuda.forward_p3_kernel(
+            call_ms = median_ms(lambda: fwd_cuda.forward_p3_kernel(
                 idx, q, lens, ones, msl, mi), 5)
             plain_ms = median_ms(lambda: seeding.forward_p3(
                 idx, q, lens, ones, msl, mi), 3)
             b_ms, b_by, nb, ops = fwd_bound(st, q, lens, got[0], got[1])
-            line += (f"; kernel {ms:.4f} ms (median of 5), plain "
+            line += (f"; kernel {ms:.4f} ms (20 launches back to back, "
+                     f"median of 3), the wrapper's call with its zero-filled "
+                     f"outputs {call_ms:.4f} ms (median of 5), plain "
                      f"{plain_ms:.1f} ms (median of 3), CUDA events; bound "
                      f"{b_ms:.5f} ms by {b_by} ({nb} B, {ops} operations), "
-                     f"{b_ms / ms:.4f} of the kernel's time; latency floor "
-                     f"{st['rounds']} dependent sector loads, "
+                     f"{b_ms / ms:.4f} of the kernel's time; "
+                     f"{floor(ms, st['rounds'], st['loads'])}; "
                      f"{ms * 1e3 / max(st['rounds'], 1):.3f} us a step")
             if idx is fm:
-                res["forward_p3"] = {"ms": ms, "plain_ms": plain_ms,
-                                     "bound_ms": b_ms, "bound_by": b_by}
+                res["forward_p3"] = {"ms": ms, "call_ms": call_ms,
+                                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                                     "bound_by": b_by, "steps": st["rounds"]}
         else:
-            ms = median_ms(lambda: fwd_cuda.forward_p3_kernel(
-                idx, q, lens, ones, msl, mi), 3)
-            line += (f"; kernel {ms:.4f} ms (median of 3, CUDA events), "
-                     f"{ms * 1e3 / max(st['rounds'], 1):.3f} us a step")
+            line += (f"; kernel {ms:.4f} ms (3 launches back to back, median "
+                     f"of 3, CUDA events), "
+                     f"{ms * 1e3 / max(st['rounds'], 1):.3f} us a step; "
+                     f"{floor(ms, st['rounds'])}")
         log(line)
 
     def pass_case(tag, idx, q, lens, minv, chain, starts, timed):
@@ -1314,14 +1493,18 @@ def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
                                     stats=st)
         err = fields_err(got, want)
         worst["forward_pass"] = max(worst["forward_pass"], err)
-        ms = median_ms(lambda: fwd_cuda.forward_pass_kernel(
+        ms = launch_ms(loop_launcher("forward_pass", idx, q, lens, minv, chain,
+                                     starts), 20)
+        call_ms = median_ms(lambda: fwd_cuda.forward_pass_kernel(
             idx, q, lens, minv, chain, starts), 5)
         line = (f"phase 2g forward_pass {tag} (chain={chain}, B={q.shape[0]}, "
                 f"L={q.shape[1]}, {idx.idt}): max_abs_err={err} over every "
                 f"field; {st['rounds']} rounds, {st['steps']} extensions, "
                 f"{st['sectors']} distinct O2 sectors, "
-                f"{int(want.n_calls.sum())} calls; kernel {ms:.4f} ms "
-                f"(median of 5, CUDA events)")
+                f"{int(want.n_calls.sum())} calls; kernel {ms:.4f} ms (20 "
+                f"launches back to back, median of 3), the wrapper's call "
+                f"with its zero-filled outputs {call_ms:.4f} ms (median of "
+                f"5), CUDA events")
         if timed:
             plain_ms = median_ms(lambda: seeding.forward_pass(
                 idx, q, lens, minv, chain, starts), 3)
@@ -1329,12 +1512,14 @@ def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
                                             starts=starts is not None)
             line += (f", plain {plain_ms:.2f} ms (median of 3); bound "
                      f"{b_ms:.5f} ms by {b_by} ({nb} B, {ops} operations), "
-                     f"{b_ms / ms:.4f} of the kernel's time; latency floor "
-                     f"{st['rounds']} dependent sector loads, "
+                     f"{b_ms / ms:.4f} of the kernel's time; "
+                     f"{floor(ms, st['rounds'], st['loads'])}; "
                      f"{ms * 1e3 / max(st['rounds'], 1):.3f} us a step")
             if idx is fm:
-                res["forward_pass"] = {"ms": ms, "plain_ms": plain_ms,
-                                       "bound_ms": b_ms, "bound_by": b_by}
+                res["forward_pass"] = {"ms": ms, "call_ms": call_ms,
+                                       "plain_ms": plain_ms,
+                                       "bound_ms": b_ms, "bound_by": b_by,
+                                       "steps": st["rounds"]}
         log(line)
 
     def sa_case(tag, idx, ks, timed):
@@ -1345,7 +1530,8 @@ def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
         want = _sa_lookup16(*args, ks, stats=st)
         err = fields_err(got, want)
         worst["sa_walk"] = max(worst["sa_walk"], err)
-        ms = median_ms(lambda: sa_cuda.sa_walk_kernel(idx, ks), 5)
+        ms = launch_ms(loop_launcher("sa_walk", idx, ks), 20)
+        call_ms = median_ms(lambda: sa_cuda.sa_walk_kernel(idx, ks), 5)
         plain_ms = median_ms(lambda: _sa_lookup16(*args, ks), 3)
         isz = ks.element_size()
         nb = (SECTOR * (st["sectors"] + st["sa_rows"]) + 2 * isz * len(ks))
@@ -1354,15 +1540,18 @@ def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
         log(f"phase 2g sa_walk {tag} (N={len(ks)}, {idx.idt}): "
             f"max_abs_err={err}; {st['rounds']} rounds (the longest walk), "
             f"{st['steps']} steps, {st['sectors']} distinct O2 sectors, "
-            f"{st['sa_rows']} SA rows; kernel {ms:.4f} ms (median of 5), "
-            f"plain {plain_ms:.2f} ms (median of 3), CUDA events; bound "
+            f"{st['sa_rows']} SA rows; kernel {ms:.4f} ms (20 launches back "
+            f"to back, median of 3), the wrapper's call {call_ms:.4f} ms "
+            f"(median of 5), plain {plain_ms:.2f} ms (median of 3), CUDA "
+            f"events; bound "
             f"{b_ms:.5f} ms by {b_by} ({nb} B, {ops} operations), "
-            f"{b_ms / ms:.4f} of the kernel's time; latency floor "
-            f"{st['rounds']} dependent sector loads, "
+            f"{b_ms / ms:.4f} of the kernel's time; "
+            f"{floor(ms, st['rounds'], st['steps'])}; "
             f"{ms * 1e3 / max(st['rounds'], 1):.3f} us a step")
         if timed and idx is fm:
-            res["sa_walk"] = {"ms": ms, "plain_ms": plain_ms,
-                              "bound_ms": b_ms, "bound_by": b_by}
+            res["sa_walk"] = {"ms": ms, "call_ms": call_ms,
+                              "plain_ms": plain_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "steps": st["rounds"]}
 
     q4, l4, _ = spy.fwd_calls["4"]
     q2, l2, m2, s2 = spy.p2_call
@@ -1386,19 +1575,168 @@ def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
               torch.ones(len(qa), dtype=torch.int64, device=qa.device), True,
               None, False)
     wide_case(fm, spy.fwd_calls.pop("14c"), side, wide_out, one, worst, msl,
-              mi)
+              mi, floor)
     for name in LOOP_KERNELS:
         r = res[name]
+        r["latency_floor_ms"] = r.pop("steps") * lat_us / 1e3
         log(f"phase 2g {name}: {launches[name]} launches in phase 4's PE "
-            f"run; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, "
+            f"run; kernel {r['ms']:.4f} ms (the wrapper's call "
+            f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.2f} ms, "
             f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
-            f"({r['bound_ms'] / r['ms']:.4f} of the kernel's time), "
+            f"({r['bound_ms'] / r['ms']:.4f} of the kernel's time), latency "
+            f"floor {r['latency_floor_ms']:.5f} ms "
+            f"({r['latency_floor_ms'] / r['ms']:.4f} of the kernel's time), "
             f"max_abs_err {worst[name]}")
         r["max_abs_err"] = worst[name]
     if any(worst.values()):
         raise Failed(f"phase 2g: a loop kernel disagrees with its plain "
                      f"version: {worst}")
     return res
+
+
+# -- --fwd-turns: kernels 4 and 5 against other builds, in turns --------------
+
+TURN_PAIRS = 8_192  # one microbatch of 16,384 reads
+
+
+def build_turn_libs(dirs) -> dict:
+    """This checkout's csrc/fwd_automata.cu and each DIR's (with the o2.cuh
+    beside it), built side by side with nvcc into build/kernels/turns/;
+    {label: ctypes library}, this checkout first as "this"."""
+    from mpibwa_tpu_torch.ops import _build
+
+    libs = {"this": _build.load("fwd_automata")}
+    for line in ptxas_lines("fwd_automata"):
+        log(f"fwd-turns this: -Xptxas -v {line}")
+    jobs = []
+    for i, d in enumerate(dirs):
+        out = os.path.join(REPO, "build", "kernels", "turns", str(i))
+        os.makedirs(out, exist_ok=True)
+        so = os.path.join(out, "libfwd_automata.so")
+        cmd = ([_build._nvcc()] + _build.ARCH_FLAGS
+               + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                  "-Xptxas", "-v", "-o", so,
+                  os.path.join(d, "fwd_automata.cu")])
+        jobs.append((d, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.PIPE,
+                                             text=True)))
+    for d, so, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise Failed(f"fwd-turns: nvcc failed for {d}:\n{err}")
+        _build.build_logs[d] = err
+        for line in ptxas_lines(d):
+            log(f"fwd-turns {d}: -Xptxas -v {line}")
+        libs[d] = ctypes.CDLL(so)
+    return libs
+
+
+def time_turns(tag, libs, name, idx, args, reps, steps, want,
+               unit="step") -> None:
+    """Each build once against want (every field), then all timed in turns,
+    A B .. B A (launch_ms: the kernel alone, reps launches back to back)."""
+    gos = {k: loop_launcher(name, idx, *args, lib=lib)
+           for k, lib in libs.items()}
+    for k, go in gos.items():
+        go()
+        torch.cuda.synchronize()
+        err = fields_err(go.out, want)
+        if err:
+            raise Failed(f"fwd-turns {tag}: {k} differs ({err})")
+    order = list(libs)
+    ms = {k: [] for k in order}
+    for k in order + order[::-1]:
+        ms[k].append(launch_ms(gos[k], reps))
+    log(f"fwd-turns {tag}: every build max_abs_err=0; in turns (kernel "
+        f"alone, {reps} launches back to back, median of 3, CUDA events): "
+        + "; ".join(f"{k} {' / '.join(f'{t:.4f}' for t in ms[k])} ms "
+                    f"({np.median(ms[k]) * 1e3 / steps:.3f} us a {unit})"
+                    for k in order))
+
+
+def fwd_turns(args) -> int:
+    """--fwd-turns DIR ...: kernels 4 and 5 of this checkout against the
+    builds of other fwd_automata.cu sources with the same C entry points
+    (an earlier design, another group width), on one card: the inputs of
+    the first microbatch of a PE run on TURN_PAIRS pairs (forward_p3, pass
+    2's first lanes, the chained forward_pass), at both position types,
+    and forward_p3 on a 14c-like batch (its first 16,383 reads and one
+    66,000-bp read off the genome) and on that read alone. Every build is
+    held to the plain loops (the wide batch: to this checkout's output,
+    which phase 2g holds to them) and timed in turns."""
+    import _torch_toy
+    from mpibwa_tpu_torch.core.opts import mem_opt_init
+    from mpibwa_tpu_torch.index.format import load_index
+    from mpibwa_tpu_torch.ops import seeding
+    from mpibwa_tpu_torch.ops.fmd import DeviceFMIndex
+
+    torch.cuda.set_device(0)
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], check=True,
+                       capture_output=True, text=True,
+                       timeout=60).stdout.strip())
+    libs = build_turn_libs(args.fwd_turns)
+    ref, chrom = build_genome(args.seed, args.genome_bp)
+    work = os.path.join(REPO, "build", "turns")
+    r1, r2 = _torch_toy.simulate_pairs({"chr1": chrom}, TURN_PAIRS,
+                                       seed=args.seed + 1)
+    fq = [os.path.join(work, f"r{i}.fq") for i in (1, 2)]
+    os.makedirs(work, exist_ok=True)
+    for path, reads in zip(fq, (r1, r2)):
+        write_reads(path, reads)
+    spy = Spy()
+    run_cli(os.path.join(work, "pe"), ["-t", "1", "-o", "out", ref] + fq,
+            spy, "device", capture="4")
+    fm = spy.runtimes[-1].aligners[0].dfm
+    spy.close()
+    fm64 = DeviceFMIndex(load_index(ref), fm.o2_tables().device,
+                         force_wide=True)
+    opt = mem_opt_init()
+    msl, mi = opt.min_seed_len, opt.max_mem_intv
+    q4, l4, _ = spy.fwd_calls["4"]
+    q2, l2, m2, s2 = spy.p2_call
+    ones = torch.ones(len(q4), dtype=torch.int64, device=q4.device)
+    for idx in (fm, fm64):
+        st = {}
+        want = seeding.forward_p3(idx, q4, l4, ones, msl, mi, stats=st)
+        time_turns(f"forward_p3 phase 4's first microbatch (B={len(q4)}, "
+                   f"{idx.idt}, {st['rounds']} rounds)", libs, "forward_p3",
+                   idx, (q4, l4, ones, msl, mi), 20, st["rounds"], want)
+        st = {}
+        want = seeding.forward_pass(idx, q2, l2, m2, False, s2, stats=st)
+        time_turns(f"forward_pass pass 2's first lanes (B={len(q2)}, "
+                   f"{idx.idt}, {st['rounds']} rounds)", libs,
+                   "forward_pass", idx, (q2, l2, m2, False, s2), 20,
+                   st["rounds"], want)
+        st = {}
+        want = seeding.forward_pass(idx, q4, l4, ones, True, None, stats=st)
+        time_turns(f"forward_pass chained on phase 4's first microbatch "
+                   f"({idx.idt}, {st['rounds']} rounds)", libs,
+                   "forward_pass", idx, (q4, l4, ones, True, None), 20,
+                   st["rounds"], want)
+    wide = wide_read(_torch_toy.to_codes(chrom), args.seed + 3)
+    qw = torch.full((len(q4), WIDE_BP), 4, dtype=torch.uint8,
+                    device=q4.device)
+    qw[:, : q4.shape[1]] = q4
+    qw[-1] = torch.from_numpy(wide).to(q4.device)
+    lw = l4.clone()
+    lw[-1] = WIDE_BP
+    this = loop_launcher("forward_p3", fm, qw, lw, ones, msl, mi)
+    this()
+    torch.cuda.synchronize()
+    time_turns(f"forward_p3 phase 14c's wide read last in phase 4's first "
+               f"microbatch (B={len(qw)}, L={WIDE_BP}, int32)", libs,
+               "forward_p3", fm, (qw, lw, ones, msl, mi), 3, WIDE_BP,
+               this.out, "base of the wide read")
+    time_turns("forward_p3 phase 14c's wide read alone", libs, "forward_p3",
+               fm, (qw[-1:].contiguous(), lw[-1:].contiguous(), ones[:1],
+                    msl, mi), 3, WIDE_BP,
+               tuple(type(t)(*(f[-1:] for f in t)) for t in this.out),
+               "base")
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 # -- phases 12, 13: the record route and the launcher -------------------------
@@ -1600,11 +1938,9 @@ WIDE_BP = 66_000  # phase 14c: the wide read, past the 16-bit call words
 WIDE_BATCH = 16_384  # phase 14c: one microbatch, the wide read last
 
 
-def wide_batch(work, codes, short_reads, seed) -> "tuple[str, str, int]":
-    """Phase 14c's FASTQ files (the short reads alone, and the short reads
-    with the wide read last) and the short reads' count: phase 7's first
-    WIDE_BATCH - 1 SE reads and a WIDE_BP read off the genome (0.1%
-    substitutions, no N)."""
+def wide_read(codes, seed) -> np.ndarray:
+    """Phase 14c's wide read: WIDE_BP codes off the genome where it holds
+    no N, with 0.1% substitutions."""
     import _torch_toy as toy
 
     rng = np.random.default_rng(seed)
@@ -1612,7 +1948,17 @@ def wide_batch(work, codes, short_reads, seed) -> "tuple[str, str, int]":
         start = int(rng.integers(0, len(codes) - WIDE_BP))
         if not (codes[start: start + WIDE_BP] >= 4).any():
             break
-    wide = toy.substituted(rng, codes[start: start + WIDE_BP], 0.001)
+    return toy.substituted(rng, codes[start: start + WIDE_BP], 0.001)
+
+
+def wide_batch(work, codes, short_reads, seed) -> "tuple[str, str, int]":
+    """Phase 14c's FASTQ files (the short reads alone, and the short reads
+    with the wide read last) and the short reads' count: phase 7's first
+    WIDE_BATCH - 1 SE reads and a WIDE_BP read off the genome (0.1%
+    substitutions, no N)."""
+    import _torch_toy as toy
+
+    wide = wide_read(codes, seed)
     short = list(short_reads[: WIDE_BATCH - 1])
     fq_s = os.path.join(work, "wide_short.fq")
     fq_w = os.path.join(work, "wide.fq")
@@ -1879,6 +2225,9 @@ def main() -> int:
                     help="pairs of the traced runs of phase 10")
     ap.add_argument("--long-reads", type=int, default=20,
                     help="reads of phase 14a and pairs of phase 14b")
+    ap.add_argument("--fwd-turns", nargs="+", metavar="DIR",
+                    help="time kernels 4 and 5 against the fwd_automata.cu "
+                         "of each DIR, in turns (fwd_turns), and stop")
     ap.add_argument("--plain-wide", nargs=4,
                     metavar=("REF", "FQ", "OUT", "PARENT_PID"),
                     help="the side process of phase 2g (plain_wide)")
@@ -1891,6 +2240,10 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     try:
+        if args.fwd_turns:
+            sys.path.insert(0, REPO)
+            sys.path.insert(0, os.path.join(REPO, "tests"))
+            return fwd_turns(args)
         return smoke(args)
     finally:
         for proc in SIDE:  # stop every side process, whatever happened

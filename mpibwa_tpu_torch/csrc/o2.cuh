@@ -5,18 +5,24 @@
 //
 // The O2 table (ops/backward8.build_o2) holds one 8-byte row [occ_c,
 // packed_word] per 16-base sub-block sb and base c, at row sb * 4 + c: the
-// four rows of a sub-block are one aligned 32-byte sector. Every rank a
-// step needs at one position (the base it extends by and a second base for
-// the forward correction, or the base it reads and its rank) lies in that
-// sector, so a position costs one sector load: load_group issues it as two
-// 16-byte loads through the read-only path. A sub-block past either end of
-// the table takes the rows one by one at the index clamped into range, as
-// the plain versions' gathers do, so any input gives their answer.
+// four rows of a sub-block are one aligned 32-byte sector. A rank needs one
+// row. The forward extension needs four ranks, of the base it extends by
+// and of a second base for the forward correction, at two positions: a
+// group of G threads (G = 1, 2 or 4) shares them, each thread loading the
+// rows of its share (fwd_ranks), the group exchanging the ranks by
+// shuffles; the rows of one position lie in one sector, so a group's loads
+// touch one or two sectors. The SA walk reads a whole sector a step
+// (load_group: two 16-byte loads through the read-only path), the base it
+// reads and its rank. A row past either end of the table is taken at the
+// index clamped into range, as the plain versions' gathers do, so any
+// input gives their answer.
 //
 // Templated on the position type P: int for the int32 index, long long
-// for the int64 one (force_wide, genomes of 2**31 positions or more).
-// Counts stay int32 either way. Sums wrap as two's complement (through the
-// unsigned type), as the int tensors of the plain versions do.
+// for the int64 one (force_wide, genomes of 2**31 positions or more). The
+// sub-block and row arithmetic is in P too: on the int32 path a row index
+// (under 2**29 for fewer than 2**31 positions) fits in 32 bits. Counts stay
+// int32 either way. Sums wrap as two's complement (through the unsigned
+// type), as the int tensors of the plain versions do.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,7 +48,7 @@ __device__ __forceinline__ P wsub(P a, P b) {
 template <typename P>
 struct O2Fm {
   const int2* rows;  // (n_rows, 2) int32, 16-byte aligned
-  long long n_rows;  // a multiple of 4
+  P n_rows;          // a multiple of 4
   P l2[5];           // L2[0..4]
   P primary;         // BWT position of the sentinel
   P seq_len;
@@ -53,13 +59,14 @@ struct Group {
   int2 r[4];
 };
 
-__device__ __forceinline__ long long clamp_row(long long idx, long long n) {
-  return idx < 0 ? 0 : (idx > n - 1 ? n - 1 : idx);
+template <typename P>
+__device__ __forceinline__ P clamp_row(P idx, P n) {
+  return idx < 0 ? (P)0 : (idx > n - 1 ? n - 1 : idx);
 }
 
 template <typename P>
-__device__ __forceinline__ Group load_group(const O2Fm<P>& fm, long long sb) {
-  const long long base = sb << 2;
+__device__ __forceinline__ Group load_group(const O2Fm<P>& fm, P sb) {
+  const P base = sb * 4;
   Group g;
   if (base >= 0 && base + 3 < fm.n_rows) {
     const int4* p = reinterpret_cast<const int4*>(fm.rows + base);
@@ -108,7 +115,7 @@ template <typename P>
 struct At {
   bool sent;
   P k;
-  long long sb;
+  P sb;
 };
 
 template <typename P>
@@ -116,7 +123,7 @@ __device__ __forceinline__ At<P> at(const O2Fm<P>& fm, P pos) {
   At<P> a;
   a.sent = pos < 0;
   a.k = stored(fm, a.sent ? (P)0 : pos);
-  a.sb = (long long)a.k >> 4;
+  a.sb = a.k >> 4;
   return a;
 }
 
@@ -125,6 +132,16 @@ template <typename P>
 __device__ __forceinline__ int rank_in(const Group& g, const At<P>& a, int c) {
   if (a.sent) return 0;
   const int2 row = pick(g, c);
+  return row.x + count_prefix(row.y, c, (int)(a.k & 15));
+}
+
+// rank of base c at a from its one row, loaded here (0 at the sentinel,
+// no load)
+template <typename P>
+__device__ __forceinline__ int rank_at(const O2Fm<P>& fm, const At<P>& a,
+                                       int c) {
+  if (a.sent) return 0;
+  const int2 row = __ldg(fm.rows + clamp_row(a.sb * 4 + c, fm.n_rows));
   return row.x + count_prefix(row.y, c, (int)(a.k & 15));
 }
 
@@ -137,26 +154,38 @@ __device__ __forceinline__ void set_intv(const O2Fm<P>& fm, int c, P& k0,
   k1 = wadd(pick5(fm.l2, 3 - c), (P)1);
 }
 
-// The loads of a forward extension of (ik0, ik1, ik2): the sectors of the
-// two positions ik1 - 1 and ik1 - 1 + ik2, one when both fall in one
-// sub-block. They depend on the interval only, not on the base, so a step
-// issues them beside its query read.
-template <typename P>
-struct FwdLoads {
-  At<P> k, l;
-  Group gk, gl;
-};
-
-template <typename P>
-__device__ __forceinline__ FwdLoads<P> extend1_fwd_load(const O2Fm<P>& fm,
-                                                        P ik1, P ik2) {
-  FwdLoads<P> f;
-  const P kq = wsub(ik1, (P)1);
-  f.k = at(fm, kq);
-  f.l = at(fm, wadd(kq, ik2));
-  f.gk = load_group(fm, f.k.sb);
-  f.gl = f.l.sb == f.k.sb ? f.gk : load_group(fm, f.l.sb);
-  return f;
+// The four ranks of a forward extension by cb: item j = 2 * pos + base,
+// pos 0 at k, 1 at l, base 0 the base cb, 1 the extra base eb. Thread t of
+// a group of G takes items t * 4/G .. t * 4/G + 4/G - 1, one row load and
+// one rank each; the group then holds all four in r (every thread the
+// same), by shuffles within the group's lanes `mask`. Every thread of the
+// group must call this together.
+template <int G, typename P>
+__device__ __forceinline__ void fwd_ranks(const O2Fm<P>& fm, const At<P>& k,
+                                          const At<P>& l, int cb, int t,
+                                          unsigned mask, int r[4]) {
+  constexpr int N = 4 / G;
+  const int eb = cb == 1 ? 0 : 3;
+  int mine[N];
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const int j = t * N + u;
+    // field by field: a choice between the two structs themselves would
+    // put them in local memory
+    At<P> a;
+    a.sent = (j & 2) ? l.sent : k.sent;
+    a.k = (j & 2) ? l.k : k.k;
+    a.sb = (j & 2) ? l.sb : k.sb;
+    mine[u] = rank_at(fm, a, (j & 1) ? eb : cb);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (G == 1) {
+      r[j] = mine[j];
+    } else {
+      r[j] = __shfl_sync(mask, mine[j % N], j / N, G);
+    }
+  }
 }
 
 // bwt.c's forward term of the other strand's start, from the rank of cb
@@ -169,20 +198,23 @@ __device__ __forceinline__ P g_term(int cb, P tot, P occ_c, P occ_e) {
 }
 
 // Row cb (the complement of the base extended by) of bwt_extend(ik,
-// is_back = 0), from the loads above (ops/fmd.extend1_fwd): the rank of
-// cb and of the extra base eb that completes the cumulative count at both
-// positions, and the primary correction.
-template <typename P>
-__device__ __forceinline__ void extend1_fwd(const O2Fm<P>& fm,
-                                            const FwdLoads<P>& f, P ik0,
-                                            P ik1, P ik2, int cb, P& k0n,
-                                            P& k1n, P& s2) {
-  const int eb = cb == 1 ? 0 : 3;
-  const int tkc = rank_in(f.gk, f.k, cb), tlc = rank_in(f.gl, f.l, cb);
-  const int ek = rank_in(f.gk, f.k, eb), el = rank_in(f.gl, f.l, eb);
+// is_back = 0) (ops/fmd.extend1_fwd), by a group of G threads (fwd_ranks):
+// the ranks of cb and of the extra base eb that completes the cumulative
+// count at both positions ik1 - 1 and ik1 - 1 + ik2, and the primary
+// correction.
+template <int G, typename P>
+__device__ __forceinline__ void extend1_fwd(const O2Fm<P>& fm, P ik0, P ik1,
+                                            P ik2, int cb, int t,
+                                            unsigned mask, P& k0n, P& k1n,
+                                            P& s2) {
+  const P kq = wsub(ik1, (P)1);
+  const At<P> k = at(fm, kq), l = at(fm, wadd(kq, ik2));
+  int r[4];
+  fwd_ranks<G>(fm, k, l, cb, t, mask, r);
+  const int tkc = r[0], ek = r[1], tlc = r[2], el = r[3];
   // bases at or before the position, in stored offsets (0 at the sentinel)
-  const P totk = f.k.sent ? (P)0 : wadd(f.k.k, (P)1);
-  const P totl = f.l.sent ? (P)0 : wadd(f.l.k, (P)1);
+  const P totk = k.sent ? (P)0 : wadd(k.k, (P)1);
+  const P totl = l.sent ? (P)0 : wadd(l.k, (P)1);
   const P gk = g_term(cb, totk, (P)tkc, (P)ek);
   const P gl = g_term(cb, totl, (P)tlc, (P)el);
   s2 = (P)(int)((unsigned)tlc - (unsigned)tkc);
@@ -199,7 +231,7 @@ __device__ __forceinline__ void extend1_fwd(const O2Fm<P>& fm,
 template <typename P>
 __device__ __forceinline__ P inv_psi(const O2Fm<P>& fm, P k) {
   const P x = k - (k > fm.primary ? 1 : 0);
-  const long long sbx = (long long)x >> 4;
+  const P sbx = x >> 4;
   const Group g = load_group(fm, sbx);
   const unsigned sh = (unsigned)((~x) & 15) << 1;
   const int c = (int)(((unsigned)g.r[0].y >> sh) & 3u);
@@ -210,7 +242,7 @@ __device__ __forceinline__ P inv_psi(const O2Fm<P>& fm, P k) {
   } else if (a.sb == sbx) {
     occ = rank_in(g, a, c);
   } else {  // another sector, or a clamped row
-    const int2 row = __ldg(fm.rows + clamp_row((a.sb << 2) + c, fm.n_rows));
+    const int2 row = __ldg(fm.rows + clamp_row(a.sb * 4 + c, fm.n_rows));
     occ = row.x + count_prefix(row.y, c, (int)(a.k & 15));
   }
   if (k == fm.seq_len)

@@ -52,7 +52,7 @@ int launch(const int2* o2, long long n_rows, const long long* l2,
            void* out, cudaStream_t st) {
   O2Fm<P> fm;
   fm.rows = o2;
-  fm.n_rows = n_rows;
+  fm.n_rows = (P)n_rows;
   for (int c = 0; c < 5; ++c) fm.l2[c] = (P)l2[c];
   fm.primary = (P)primary;
   fm.seq_len = (P)seq_len;
@@ -63,7 +63,41 @@ int launch(const int2* o2, long long n_rows, const long long* l2,
   return (int)cudaGetLastError();
 }
 
+// A dependent-load probe for the walks' latency floor: each thread chases
+// `steps` sectors of the O2 table, the next sector a hash of the row just
+// loaded (so a load cannot issue before the one before it returns), and
+// writes where it ended (so the loads are live). A step is one dependent
+// device-memory load through the read-only path, as a walk's step, plus a
+// few instructions of hashing.
+__global__ void latency_probe_kernel(const int2* __restrict__ rows,
+                                     unsigned n_sectors, int steps,
+                                     unsigned seed, unsigned* out) {
+  const unsigned id = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned s = (unsigned)(((unsigned long long)(seed ^ (id * 0x9E3779B9u))
+                           * n_sectors) >> 32);
+  for (int t = 0; t < steps; ++t) {
+    const int2 r = __ldg(rows + 4ull * s);
+    const unsigned h = ((unsigned)r.x * 0x9E3779B1u) ^ (unsigned)r.y
+                       ^ (s * 0x85EBCA6Bu) ^ (unsigned)t;
+    s = (unsigned)(((unsigned long long)h * n_sectors) >> 32);
+  }
+  out[id] = s;
+}
+
 }  // namespace
+
+// The probe: `blocks` blocks of `threads` threads, each chasing `steps`
+// sectors of the O2 table `o2` (n_rows rows, a multiple of 4; device
+// pointer) from a start drawn from `seed`; out (blocks * threads) uint32
+// on the device. Returns the cudaError of the launch.
+extern "C" int mpibwa_latency_probe(const int2* o2, long long n_rows,
+                                    int blocks, int threads, int steps,
+                                    unsigned seed, unsigned* out,
+                                    void* stream) {
+  latency_probe_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      o2, (unsigned)(n_rows / 4), steps, seed, out);
+  return (int)cudaGetLastError();
+}
 
 // Host entry point. All pointers but `l2` (a host array of L2[0..4] as
 // int64) are device pointers; sa, ks and out hold positions of the index's

@@ -3,8 +3,9 @@ csrc/fwd_automata.cu.
 
 The kernels replace the device while_loops of mpibwa_tpu/ops/seeding.py
 ``forward_p3`` and ``forward_pass`` (XLA programs, not Pallas kernels):
-one CUDA thread runs a read's automata to their end (see the note at the
-top of the source for its bound and design). ``DeviceSeeder`` calls them
+a group of four threads runs each automaton of a read to its end, pass 1
+and pass 3 in warps of their own (see the note at the top of the source
+for its bound and design). ``DeviceSeeder`` calls them
 for pass 1 (with pass 3 when max_mem_intv > 0) and for pass 2.
 
 ``forward_p3_kernel`` and ``forward_pass_kernel`` take the signatures of

@@ -169,12 +169,15 @@ class _Trace:
     """What a run of the automata needs, for a bound: the rounds in which a
     lane was not done (the longest lane's steps), the forward extensions
     the lanes needed and the distinct O2 sub-blocks (32-byte sectors) they
-    read, at ik1 - 1 and ik1 - 1 + ik2 (ops/fmd.extend1_fwd)."""
+    read, at ik1 - 1 and ik1 - 1 + ik2 (ops/fmd.extend1_fwd); and the
+    sector loads, one an extension where both positions share a sub-block,
+    else two."""
 
     def __init__(self, fm, dev):
         self.primary = fm.primary
         self.rounds = torch.zeros((), dtype=torch.int64, device=dev)
         self.steps = torch.zeros((), dtype=torch.int64, device=dev)
+        self.loads = torch.zeros((), dtype=torch.int64, device=dev)
         self.blocks = []
 
     def round(self, active: torch.Tensor) -> None:
@@ -187,10 +190,12 @@ class _Trace:
             k = pos.clamp(min=0)
             self.blocks.append((k - (k >= self.primary).to(k.dtype)) >> 4)
         self.steps += need.sum()
+        self.loads += need.sum() + (self.blocks[-1] != self.blocks[-2]).sum()
 
     def done(self, stats: dict) -> None:
         stats["rounds"] = int(self.rounds)
         stats["steps"] = int(self.steps)
+        stats["loads"] = int(self.loads)
         stats["sectors"] = (int(torch.unique(torch.cat(self.blocks)).numel())
                             if self.blocks else 0)
 

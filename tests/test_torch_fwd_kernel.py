@@ -4,12 +4,16 @@ ops/fwd_cuda.py and ops/sa_cuda.py) against the JAX package's device loops
 (mpibwa_tpu/ops/seeding.py ``forward_p3``, ``forward_pass``; ops/fmd.py
 ``sa_lookup``) on the toy genome, at both position dtypes:
 
-(a) a scalar model of one CUDA thread, written here: one lane (one read,
-    one SA index) at a time, the control flow and the O2 sector reads the
-    kernels follow (csrc/o2.cuh), equal to the JAX loops on every output
-    field, with lanes that hold N bases, reads shorter than the batch
-    width, starts past 0 with min_intv > 1, lanes that overflow F_CAP,
-    C_CAP and S3_CAP, and the SA walk's edge indices;
+(a) a model of the kernels' threads, written here: the forward kernels
+    block by block (each block's reads staged in shared memory where they
+    fit, else read in place), forward_p3's warps split into a pass-1 and a
+    pass-3 role, each automaton held in lockstep by a group of G threads
+    that share out the step's four O2 rows and exchange the ranks by
+    shuffles (G = 1, 2 and 4, the kernels' own among them); the SA walk one
+    index a thread. Equal to the JAX loops on every output field, with
+    lanes that hold N bases, reads shorter than the batch width, starts
+    past 0 with min_intv > 1, lanes that overflow F_CAP, C_CAP and S3_CAP,
+    and the SA walk's edge indices;
 (b) the wrappers on CPU tensors (their plain versions) equal to the JAX
     loops, and the seeder's call sites going through the wrappers;
 (c) on a card (marked ``gpu``, skipped without one) each kernel equal to
@@ -35,7 +39,7 @@ SEEK, EXT, DONE = 0, 1, 2
 LONG_READS = ((1000, 0.03), (1000, 0.03), (2000, 0.04), (2000, 0.04))
 
 
-# -- (a) the scalar model of one CUDA thread ----------------------------------
+# -- (a) the model of the kernels' threads ----------------------------------
 
 class O2Model:
     """The O2 table and the position arithmetic of csrc/o2.cuh for one
@@ -93,18 +97,42 @@ class O2Model:
         w, l2 = self.wrap, self.l2
         return w(l2[c] + 1), w(l2[3 - c] + 1), w(l2[c + 1] - l2[c])
 
-    def extend1_fwd(self, ik0, ik1, ik2, cb):
-        """One forward extension: the sectors at ik1 - 1 and ik1 - 1 + ik2
-        (one when they share a sub-block), the ranks of cb and of the extra
-        base, then bwt_extend's row cb."""
+    def rank_at(self, at, c: int) -> "tuple[int, int]":
+        """(rank, row index) of base c at `at` from its one row, the index
+        clamped into the table (csrc/o2.cuh rank_at); no row (-1) at the
+        sentinel."""
+        sent, k, sb = at
+        if sent:
+            return 0, -1
+        r = min(max(sb * 4 + c, 0), self.n_rows - 1)
+        occ, word = self.rows[r]
+        return occ + self.count_prefix(word, c, k & 15), r
+
+    def fwd_ranks(self, ak, al, cb: int, G: int) -> list:
+        """The four ranks of a forward extension by a group of G threads
+        (csrc/o2.cuh fwd_ranks): item j = 2 * pos + base of (k, cb), (k,
+        eb), (l, cb), (l, eb); thread t loads and ranks items t * n .. t *
+        n + n - 1 (n = 4 / G), one row each, and the group's rows lie in at
+        most two sectors; __shfl_sync(mask, mine[j % n], j // n, G) then
+        hands every thread item j from thread j // n."""
+        n = 4 // G
+        eb = 0 if cb == 1 else 3
+        mine = [[self.rank_at(al if j & 2 else ak, eb if j & 1 else cb)
+                 for j in range(t * n, t * n + n)] for t in range(G)]
+        rows = {r for own in mine for _, r in own if r >= 0}
+        assert len({r >> 2 for r in rows}) <= 2
+        held = [[mine[j // n][j % n][0] for j in range(4)] for _ in range(G)]
+        assert all(h == held[0] for h in held)
+        return held[0]
+
+    def extend1_fwd(self, ik0, ik1, ik2, cb, G: int = 1):
+        """One forward extension by a group of G threads: the ranks of cb
+        and of the extra base at ik1 - 1 and ik1 - 1 + ik2 (fwd_ranks),
+        then bwt_extend's row cb, the same in every thread."""
         w = self.wrap
         kq = w(ik1 - 1)
         ak, al = self.at(kq), self.at(w(kq + ik2))
-        gk = self.group(ak[2])
-        gl = gk if al[2] == ak[2] else self.group(al[2])
-        eb = 0 if cb == 1 else 3
-        tkc, tlc = self.rank_in(gk, ak, cb), self.rank_in(gl, al, cb)
-        ek, el = self.rank_in(gk, ak, eb), self.rank_in(gl, al, eb)
+        tkc, ek, tlc, el = self.fwd_ranks(ak, al, cb, G)
         totk = 0 if ak[0] else w(ak[1] + 1)
         totl = 0 if al[0] else w(al[1] + 1)
 
@@ -145,21 +173,90 @@ class O2Model:
         return self.wrap(steps + self.sa[row])
 
 
-class FwdLane:
-    """The pass-1/pass-2 automaton of one thread (csrc/fwd_automata.cu
-    ``Fwd``), writing into one lane's rows of the output arrays."""
+# the kernels' block shape, read from their source: threads a block,
+# threads an automaton (the group), bytes of a block's staged reads
+CU = "mpibwa_tpu_torch/csrc/fwd_automata.cu"
 
-    def __init__(self, m: O2Model, out: dict, b: int, x0: int):
-        self.m, self.out, self.b = m, out, b
+
+def cu_shape() -> dict:
+    import os
+    import re
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    src = open(os.path.join(root, CU)).read()
+    out = {}
+    for name in ("THREADS", "G", "STAGE_MAX"):
+        expr = re.search(rf"constexpr int {name} = ([0-9 *]+);", src).group(1)
+        out[name] = int(np.prod([int(v) for v in expr.split("*")]))
+    return out
+
+
+def launch_shape(B: int, L: int, reads: int, stage_max: int):
+    """(grid, Lp) of a launch of blocks of `reads` reads (csrc shape()):
+    Lp = L where the block's rows fit in stage_max bytes of shared memory,
+    0 where they are read in place."""
+    nbytes = (reads * L + 31) // 16 * 16
+    return -(-B // reads), (L if nbytes <= stage_max else 0)
+
+
+def block_threads(p3: bool, G: int, threads: int) -> list:
+    """(role, read within the block, thread within the group) of each thread
+    of a block (lane_of): forward_p3's first half of warps run pass 1, the
+    second half pass 3, of the same reads; every warp has one role and
+    every read of a role G threads."""
+    out = []
+    for tid in range(threads):
+        role = "p3" if p3 and tid >= threads // 2 else "fwd"
+        r = tid - (threads // 2 if role == "p3" else 0)
+        out.append((role, r // G, r % G))
+    for w in range(0, threads, 32):
+        assert len({role for role, _, _ in out[w: w + 32]}) == 1
+    per = {}
+    for role, read, t in out:
+        per.setdefault((role, read), []).append(t)
+    assert all(ts == list(range(G)) for ts in per.values())
+    return out
+
+
+def stage_rows(q: np.ndarray, b0: int, n: int) -> "tuple[np.ndarray, int]":
+    """A block's staged reads (stage_reads): the whole aligned 16-byte words
+    around rows b0 .. b0 + n - 1 of q, bytes outside q unset (255); and the
+    offset of read b0's first byte in them."""
+    L = q.shape[1]
+    flat = q.reshape(-1)
+    start = b0 * L
+    off = (q.ctypes.data + start) % 16
+    words = -(-(off + n * L) // 16)
+    smem = np.full(16 * words, 255, np.uint8)
+    lo, hi = start - off, min(start - off + 16 * words, flat.size)
+    smem[max(0, -lo): hi - lo] = flat[max(lo, 0): hi]
+    return smem, off
+
+
+class FwdLane:
+    """The pass-1/pass-2 automaton of one lane, as the G threads of its
+    group hold it in lockstep (csrc/fwd_automata.cu ``Fwd``): one state,
+    the step's four ranks shared out (O2Model.extend1_fwd), each item of a
+    write by thread j % G (``writes``, counted in ``wrote``)."""
+
+    def __init__(self, m: O2Model, out: dict, b: int, x0: int, G: int = 1):
+        self.m, self.out, self.b, self.G = m, out, b, G
         self.x, self.kind, self.info, self.i = x0, SEEK, 0, 0
         self.n_pushed = self.n_calls = self.cur_start = 0
         self.ik = (0, 0, 0)
         self.overflow = False
+        self.wrote = [0] * G
+
+    def put(self, name, idx, value, j):
+        """item j of a group's write, by the one thread with j % G == t"""
+        (t,) = [t for t in range(self.G) if j % self.G == t]
+        self.wrote[t] += 1
+        self.out[name][idx] = value
 
     def seek(self, q, L, length, chain, c_cap):
         if self.kind != SEEK:
             return
-        x, o, b = self.x, self.out, self.b
+        x, b = self.x, self.b
         qx = int(q[x]) if 0 <= x < L else 4
         if x >= length:
             self.kind = DONE
@@ -171,11 +268,12 @@ class FwdLane:
         elif self.n_calls >= c_cap:
             self.overflow, self.kind = True, DONE
         else:
-            if self.n_calls:
-                o["call_len"][b, self.n_calls - 1] = (self.n_pushed
-                                                      - self.cur_start)
-            o["call_x"][b, self.n_calls] = x
-            o["call_start"][b, self.n_calls] = self.n_pushed
+            c = self.n_calls
+            if c:
+                self.put("call_len", (b, c - 1),
+                         self.n_pushed - self.cur_start, 0)
+            self.put("call_x", (b, c), x, 1)
+            self.put("call_start", (b, c), self.n_pushed, 2)
             self.cur_start = self.n_pushed
             self.n_calls += 1
             self.ik = self.m.set_intv(qx)
@@ -185,16 +283,18 @@ class FwdLane:
     def step(self, qi, length, minv, chain, f_cap):
         if self.kind != EXT:
             return
-        o, b = self.out, self.b
+        b = self.b
         at_end = self.i >= length
         amb = not at_end and qi > 3
         do_ext = not at_end and not amb
-        nk = self.m.extend1_fwd(*self.ik, 3 - qi) if do_ext else (0, 0, 0)
+        nk = (self.m.extend1_fwd(*self.ik, 3 - qi, self.G) if do_ext
+              else (0, 0, 0))
         changed = nk[2] != self.ik[2]
         if at_end or amb or (do_ext and changed):
             if self.n_pushed < f_cap:
-                o["ivals"][b, self.n_pushed] = self.ik
-                o["infos"][b, self.n_pushed] = self.info
+                for j in range(3):
+                    self.put("ivals", (b, self.n_pushed, j), self.ik[j], j)
+                self.put("infos", (b, self.n_pushed), self.info, 3)
             else:
                 self.overflow = True
             self.n_pushed += 1
@@ -208,12 +308,75 @@ class FwdLane:
             self.info = self.i = self.i + 1
 
     def finish(self):
-        o, b = self.out, self.b
+        b = self.b
         if self.n_calls:
-            o["call_len"][b, self.n_calls - 1] = self.n_pushed - self.cur_start
-        o["n_pushed"][b] = self.n_pushed
-        o["n_calls"][b] = self.n_calls
-        o["overflow"][b] = self.overflow
+            self.put("call_len", (b, self.n_calls - 1),
+                     self.n_pushed - self.cur_start, 0)
+        self.put("n_pushed", b, self.n_pushed, 1)
+        self.put("n_calls", b, self.n_calls, 2)
+        self.put("overflow", b, self.overflow, 3)
+
+    def run(self, row, L, length, minv, chain):
+        """run_fwd: the lane to its end"""
+        from mpibwa_tpu_torch.ops.seeding import C_CAP, F_CAP
+
+        while self.kind != DONE:
+            self.seek(row, L, length, chain, C_CAP)
+            self.step(int(row[self.i]) if 0 <= self.i < L else 4, length,
+                      minv, chain, F_CAP)
+        self.finish()
+
+
+def run_p3(m, row, L, n, G, p3, b, min_seed_len, max_intv) -> list:
+    """run_p3: the pass-3 sweep of one lane to its end, as its group holds
+    it; returns the writes of each thread of the group."""
+    from mpibwa_tpu_torch.ops.seeding import S3_CAP
+
+    def base(pos):
+        return int(row[pos]) if 0 <= pos < L else 4
+
+    wrote = [0] * G
+
+    def put(name, idx, value, j):
+        wrote[j % G] += 1
+        p3[name][idx] = value
+
+    x = i = pn = 0
+    kind, k, ov = SEEK, (0, 0, 0), False
+    while kind != DONE:
+        if kind == SEEK:
+            qx = base(x)
+            if x >= n:
+                kind = DONE
+            elif qx > 3:
+                x += 1
+            else:
+                k, i, kind = m.set_intv(qx), x + 1, EXT
+        if kind != EXT:
+            continue
+        qi = base(i)
+        at_end = i >= n
+        amb = not at_end and qi > 3
+        do_ext = not at_end and not amb
+        nk = m.extend1_fwd(*k, 3 - qi, G) if do_ext else (0, 0, 0)
+        hit = do_ext and nk[2] < max_intv and i - x >= min_seed_len
+        if hit and nk[2] > 0:
+            if pn < S3_CAP:
+                for j in range(3):
+                    put("seeds", (b, pn, j), nk[j], j)
+                put("infos", (b, pn), (x << 32) | (i + 1), 3)
+            else:
+                ov = True
+            pn += 1
+        if at_end:
+            kind = DONE
+        elif amb or hit:
+            x, kind = i + 1, SEEK
+        else:
+            k, i = nk, i + 1
+    put("n_seeds", b, pn, 0)
+    put("overflow", b, ov, 1)
+    return wrote
 
 
 def _fwd_arrays(B, idt):
@@ -229,76 +392,61 @@ def _fwd_arrays(B, idt):
             "overflow": np.zeros(B, bool)}
 
 
-def model_forward_pass(m, q, lens, minv, chain=True, starts=None):
-    """forward_pass_kernel, one thread (read) after another."""
-    from mpibwa_tpu_torch.ops.seeding import C_CAP, F_CAP
+def _blocks(q, reads, G, p3, shape):
+    """Each read of each block as the launch holds it: (b, row, staged), its
+    row from the block's staged reads where the block's rows fit in shared
+    memory, else q's row in place."""
+    B, L = q.shape
+    grid, Lp = launch_shape(B, L, reads, shape["STAGE_MAX"])
+    block_threads(p3, G, shape["THREADS"])
+    for blk in range(grid):
+        b0 = blk * reads
+        n = min(reads, B - b0)
+        smem, off = stage_rows(q, b0, n) if Lp else (None, 0)
+        for j in range(n):
+            row = (smem[off + j * Lp: off + (j + 1) * Lp] if Lp
+                   else q[b0 + j])
+            yield b0 + j, row, Lp > 0
 
+
+def model_forward_pass(m, q, lens, minv, chain=True, starts=None, G=None,
+                       writes=None):
+    """forward_pass_kernel block by block: a group of G threads a read
+    (the kernel's G by default), its row staged or in place."""
+    shape = cu_shape()
+    G = G or shape["G"]
     B, L = q.shape
     out = _fwd_arrays(B, np.int64 if m.bits == 64 else np.int32)
-    for b in range(B):
-        s = FwdLane(m, out, b, 0 if starts is None else int(starts[b]))
-        while s.kind != DONE:
-            s.seek(q[b], L, int(lens[b]), chain, C_CAP)
-            qi = int(q[b, s.i]) if 0 <= s.i < L else 4
-            s.step(qi, int(lens[b]), int(minv[b]), chain, F_CAP)
-        s.finish()
+    for b, row, staged in _blocks(q, shape["THREADS"] // G, G, False, shape):
+        s = FwdLane(m, out, b, 0 if starts is None else int(starts[b]), G)
+        s.run(row, L, int(lens[b]), int(minv[b]), chain)
+        if writes is not None:
+            writes.append((staged, s.wrote))
     return out
 
 
-def model_forward_p3(m, q, lens, minv, min_seed_len, max_intv):
-    """forward_p3_kernel, one thread (read) after another: each round the
-    pass-1 automaton and the pass-3 sweep both seek, then both extend."""
-    from mpibwa_tpu_torch.ops.seeding import C_CAP, F_CAP, S3_CAP
+def model_forward_p3(m, q, lens, minv, min_seed_len, max_intv, G=None,
+                     writes=None):
+    """forward_p3_kernel block by block: for each read a pass-1 group and a
+    pass-3 group, each run to its own end."""
+    from mpibwa_tpu_torch.ops.seeding import S3_CAP
 
+    shape = cu_shape()
+    G = G or shape["G"]
     B, L = q.shape
     idt = np.int64 if m.bits == 64 else np.int32
     out = _fwd_arrays(B, idt)
     p3 = {"seeds": np.zeros((B, S3_CAP, 3), idt),
           "infos": np.zeros((B, S3_CAP), np.int64),
           "n_seeds": np.zeros(B, np.int32), "overflow": np.zeros(B, bool)}
-    for b in range(B):
-        row, n = q[b], int(lens[b])
-
-        def base(pos):
-            return int(row[pos]) if 0 <= pos < L else 4
-
-        s = FwdLane(m, out, b, 0)
-        px = pi = pn = 0
-        pkind, pk, pov = SEEK, (0, 0, 0), False
-        while s.kind != DONE or pkind != DONE:
-            s.seek(row, L, n, True, C_CAP)
-            if pkind == SEEK:
-                pqx = base(px)
-                if px >= n:
-                    pkind = DONE
-                elif pqx > 3:
-                    px += 1
-                else:
-                    pk, pi, pkind = m.set_intv(pqx), px + 1, EXT
-            s.step(base(s.i), n, int(minv[b]), True, F_CAP)
-            if pkind != EXT:
-                continue
-            pqi = base(pi)
-            p_end = pi >= n
-            pamb = not p_end and pqi > 3
-            pdo = not p_end and not pamb
-            qk = m.extend1_fwd(*pk, 3 - pqi) if pdo else (0, 0, 0)
-            hit = pdo and qk[2] < max_intv and pi - px >= min_seed_len
-            if hit and qk[2] > 0:
-                if pn < S3_CAP:
-                    p3["seeds"][b, pn] = qk
-                    p3["infos"][b, pn] = (px << 32) | (pi + 1)
-                else:
-                    pov = True
-                pn += 1
-            if p_end:
-                pkind = DONE
-            elif pamb or hit:
-                px, pkind = pi + 1, SEEK
-            else:
-                pk, pi = qk, pi + 1
-        s.finish()
-        p3["n_seeds"][b], p3["overflow"][b] = pn, pov
+    reads = shape["THREADS"] // 2 // G
+    for b, row, staged in _blocks(q, reads, G, True, shape):
+        s = FwdLane(m, out, b, 0, G)
+        s.run(row, L, int(lens[b]), int(minv[b]), True)
+        w3 = run_p3(m, row, L, int(lens[b]), G, p3, b, min_seed_len,
+                    max_intv)
+        if writes is not None:
+            writes.append((staged, [a + c for a, c in zip(s.wrote, w3)]))
     return out, p3
 
 
@@ -406,39 +554,79 @@ def _np(t) -> dict:
 
 # -- (a) the model against the JAX loops --------------------------------------
 
-def test_model_forward_p3(fms, batch, jax_out):
+GROUPS = (1, 2, 4)  # threads an automaton the model runs at
+ROWS = ("short", "wide")
+
+
+def rows_case(batch, jax_want, rows):
+    """The batch and the JAX outputs of a case: "wide", the whole batch (as
+    wide as its longest read: every block reads its rows in place);
+    "short", the toy reads alone, cut to their own width (their blocks
+    stage their rows). A lane's outputs do not depend on the batch width
+    or on the other lanes."""
+    q, lens, starts, minv = batch
+    if rows == "wide":
+        return batch, jax_want
+    n = len(q) - len(LONG_READS)
+    cut = {k: v[:n] for k, v in jax_want.items()}
+    return (np.ascontiguousarray(q[:n, : int(lens[:n].max())]), lens[:n],
+            starts[:n], minv[:n]), cut
+
+
+def check_writes(writes, rows, G):
+    """Every thread of a group writes its share; short rows staged at the
+    kernels' own G, wide rows never."""
+    assert all(sum(w[t] for _, w in writes) > 0 for t in range(G))
+    staged = {s for s, _ in writes}
+    if rows == "wide":
+        assert staged == {False}
+    elif G == cu_shape()["G"]:
+        assert staged == {True}
+
+
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("G", GROUPS)
+def test_model_forward_p3(fms, batch, jax_out, G, rows):
     """forward_p3: every field of both automata, with lanes overflowing
-    F_CAP alone, C_CAP and S3_CAP among them."""
+    F_CAP alone, C_CAP and S3_CAP among them (wide rows)."""
     from mpibwa_tpu_torch.ops.seeding import C_CAP, F_CAP, S3_CAP
 
     _, _, m = fms
-    q, lens, _, _ = batch
+    (q, lens, _, _), want_f = rows_case(batch, jax_out["p3"][0], rows)
+    _, want_p = rows_case(batch, jax_out["p3"][1], rows)
     opt = mem_opt_init()
+    writes = []
     fwd, p3 = model_forward_p3(m, q, lens, np.ones(len(q), np.int64),
-                               opt.min_seed_len, opt.max_mem_intv)
-    want_f, want_p = jax_out["p3"]
+                               opt.min_seed_len, opt.max_mem_intv, G, writes)
     _assert_fields(fwd, want_f, "pass 1")
     _assert_fields(p3, want_p, "pass 3")
+    check_writes(writes, rows, G)
     ov, calls, pushed = want_f["overflow"], want_f["n_calls"], \
         want_f["n_pushed"]
-    assert (ov & (calls < C_CAP) & (pushed > F_CAP)).any()  # F_CAP alone
-    assert (ov & (calls == C_CAP)).any()  # C_CAP ended the lane
-    assert (want_p["overflow"] & (want_p["n_seeds"] > S3_CAP)).any()
     assert (~ov).sum() >= 40 and want_p["n_seeds"].sum() > 0
+    if rows == "wide":
+        assert (ov & (calls < C_CAP) & (pushed > F_CAP)).any()  # F_CAP alone
+        assert (ov & (calls == C_CAP)).any()  # C_CAP ended the lane
+        assert (want_p["overflow"] & (want_p["n_seeds"] > S3_CAP)).any()
 
 
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("G", GROUPS)
 @pytest.mark.parametrize("mode", ["chain", "single"])
-def test_model_forward_pass(fms, batch, jax_out, mode):
+def test_model_forward_pass(fms, batch, jax_out, mode, G, rows):
     """forward_pass chained from 0 (pass 1) and one call a lane from
     starts with min_intv 1-4 (pass 2): every field."""
     _, _, m = fms
-    q, lens, starts, minv = batch
+    (q, lens, starts, minv), want = rows_case(batch, jax_out[mode], rows)
+    writes = []
     if mode == "chain":
-        got = model_forward_pass(m, q, lens, np.ones(len(q), np.int64))
+        got = model_forward_pass(m, q, lens, np.ones(len(q), np.int64),
+                                 G=G, writes=writes)
     else:
-        got = model_forward_pass(m, q, lens, minv, False, starts)
+        got = model_forward_pass(m, q, lens, minv, False, starts, G, writes)
         assert (got["n_calls"] == 0).sum() >= 3  # past the end, on an N
-    _assert_fields(got, jax_out[mode], mode)
+    _assert_fields(got, want, mode)
+    check_writes(writes, rows, G)
 
 
 def test_model_sa_walk(fms, jax_out):
@@ -531,10 +719,13 @@ def test_seeder_calls_the_wrappers(index, tmp_path, monkeypatch, y):
 # -- (c) on the card ----------------------------------------------------------
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rows", ROWS)
 @pytest.mark.parametrize("wide", [False, True], ids=["i32", "i64"])
-def test_kernels_match_plain_on_gpu(index, batch, wide):
+def test_kernels_match_plain_on_gpu(index, batch, wide, rows):
     """Each kernel equals its plain version on the card, on every output
-    field, in exactly one launch a call."""
+    field, in exactly one launch a call: on the short reads (each block's
+    rows staged in shared memory) and on the whole batch (rows read in
+    place)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
     from mpibwa_tpu_torch.ops import fwd_cuda, sa_cuda, seeding
@@ -542,7 +733,8 @@ def test_kernels_match_plain_on_gpu(index, batch, wide):
 
     dev = torch.device("cuda")
     fm = DeviceFMIndex(index["idx"], dev, force_wide=wide)
-    q, lens, starts, minv = (torch.from_numpy(a).to(dev) for a in batch)
+    case, _ = rows_case(batch, {}, rows)
+    q, lens, starts, minv = (torch.from_numpy(a).to(dev) for a in case)
     ones = torch.ones(len(q), dtype=torch.int64, device=dev)
     opt = mem_opt_init()
 
