@@ -84,10 +84,14 @@ Phases, one printed line (or more) each:
      phases 12-2f run); forward_pass on pass 2's first lanes (starts,
      min_intv > 1) and chained on phase 4's first microbatch and 14a's
      reads; the SA walk on phase 4's first prefetch plus 0, primary,
-     seq_len and multiples of sa_intv; phase 4's inputs again on phase
-     2e's int64 index; the kernels' registers and spills (-Xptxas -v); a
-     dependent-load probe (csrc/sa_walk.cu) over the O2 table: one
-     thread, a warp on every SM, every SM full; kernel times (the kernel
+     seq_len and multiples of sa_intv (set a), and timed on (b) all but
+     its 1% longest walks (the heavy phase), (c) those walks alone (the
+     latency tail) and (d) the longest walk alone; phase 4's inputs again
+     on phase 2e's int64 index; the kernels' registers and spills
+     (-Xptxas -v); a dependent-load probe (csrc/sa_walk.cu) over the O2
+     table: one thread, a warp on every SM, every SM full, at the card's
+     default L2 fetch granularity and again at 32 bytes (then restored);
+     kernel times (the kernel
      alone: launches back to back into preallocated outputs), the
      wrapper's call and the plain loop (CUDA events, medians), the bound,
      the latency floor (the longest lane's steps times the probe's lone
@@ -130,10 +134,11 @@ line of kernel results, and last
 Usage: python3 chip_smoke.py [--pairs N] [--host-pairs N] [--genome-bp N]
                              [--seed S] [--traced-pairs N] [--long-reads N]
        python3 chip_smoke.py --fwd-turns DIR [DIR ...] [--genome-bp N]
+       python3 chip_smoke.py --sa-turns DIR [DIR ...] [--genome-bp N]
 (--host-pairs sets the pairs of phases 6, 7, 12 and 13. --fwd-turns times
-kernels 4 and 5 against the fwd_automata.cu of each DIR, with the o2.cuh
-beside it, in turns on the same inputs, and runs no other phase: see
-fwd_turns.)
+kernels 4 and 5 against the fwd_automata.cu of each DIR, --sa-turns kernel
+6 against the sa_walk.cu of each DIR, with the o2.cuh beside it, in turns
+on the same inputs, and runs no other phase: see fwd_turns, sa_turns.)
 Exits non-zero without a usable CUDA device, on any mismatch and on any
 error.
 """
@@ -1213,6 +1218,31 @@ def launch_ms(go, reps: int) -> float:
     return float(np.median(times))
 
 
+FLUSH_BYTES = 128 << 20  # written before each cold launch: over twice the L2
+
+
+def cold_ms(go, reps: int = 11) -> float:
+    """A kernel's own time with its inputs out of the L2 cache, as a
+    main-path call finds them (back-to-back launches of a small walk find
+    its sectors in the L2): each launch alone between two CUDA events,
+    after FLUSH_BYTES written outside them; the median of reps after a
+    warm-up. One launch's start-up is included."""
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                      device=go.keep[0].device)
+    go()
+    times = []
+    for i in range(reps):
+        buf.fill_(i)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        go()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
 def loop_launcher(name, idx, *a, lib=None):
     """A launch of loop kernel `name` through the C entry point its wrapper
     calls (or the same symbol of the ctypes library `lib`: --fwd-turns),
@@ -1324,13 +1354,56 @@ PROBE = (("one thread", 1, 1, 4000), ("a warp on every SM", None, 32, 2000),
          ("1,024 threads on every SM", None, 1024, 500))
 
 
+L2_FETCH_BYTES = 32  # phase 2g's probe again at this L2 fetch granularity
+
+
+def l2_fetch_granularity(nbytes: int) -> int:
+    """Set the device's L2 fetch granularity limit to nbytes (0: leave it)
+    through csrc/sa_walk.cu; returns the value it held before."""
+    from mpibwa_tpu_torch.ops import _build
+
+    fn = _build.entry("sa_walk", "mpibwa_l2_fetch_granularity",
+                      [ctypes.c_longlong,
+                       ctypes.POINTER(ctypes.c_longlong)])
+    before = ctypes.c_longlong(-1)
+    rc = fn(nbytes, ctypes.byref(before))
+    if rc != 0:
+        raise Failed(f"phase 2g: cudaLimitMaxL2FetchGranularity "
+                     f"{nbytes}: cudaError {rc}")
+    return before.value
+
+
 def latency_probe(fm) -> "tuple[float, float]":
     """The dependent-load probe of csrc/sa_walk.cu on the index's O2
     table: one thread, one warp on each SM, then every SM full, each
     thread chasing random sectors, every load's address a hash of the row
-    before (CUDA events, median of 5). Returns one thread's us a dependent
-    load (the latency floor's unit) and the full card's random loads a
-    second."""
+    before (CUDA events, median of 5); then all three again with the L2
+    fetch granularity set to L2_FETCH_BYTES, and the card's own value put
+    back. Returns one thread's us a dependent load (the latency floor's
+    unit) and the full card's random loads a second, both at the card's
+    default."""
+    default = l2_fetch_granularity(0)
+    got = probe_once(fm, f"L2 fetch granularity {default} B (the card's "
+                     f"default)")
+    l2_fetch_granularity(L2_FETCH_BYTES)
+    try:
+        small = probe_once(fm, f"L2 fetch granularity {L2_FETCH_BYTES} B")
+    finally:
+        l2_fetch_granularity(default)
+    if l2_fetch_granularity(0) != default:
+        raise Failed("phase 2g: the L2 fetch granularity was not restored")
+    log(f"phase 2g latency probe, L2 fetch granularity {L2_FETCH_BYTES} B "
+        f"against {default} B: one thread {small[0]:.4f} against "
+        f"{got[0]:.4f} us a load, every SM full {small[1] / 1e9:.3f} "
+        f"against {got[1] / 1e9:.3f} G loads a second ({small[1] / got[1]:.3f}"
+        f"x; restored to {default} B; every other phase runs at the "
+        f"default)")
+    return got
+
+
+def probe_once(fm, setting: str) -> "tuple[float, float]":
+    """latency_probe's three launches at the current L2 setting: (one
+    thread's us a load, the full card's loads a second)."""
     from mpibwa_tpu_torch.ops import _build
 
     fn = _build.entry("sa_walk", "mpibwa_latency_probe",
@@ -1357,11 +1430,11 @@ def latency_probe(fm) -> "tuple[float, float]":
         ms = median_ms(go, 5)
         us[tag] = ms * 1e3 / steps
         rate = blocks * threads * steps / ms * 1e3
-        log(f"phase 2g latency probe, {tag} ({blocks} x {threads} threads, "
-            f"{steps} dependent 8-byte loads each over the {o2.shape[0]}-row "
-            f"O2 table, {o2.numel() * 4 / 1e9:.3f} GB): {us[tag]:.4f} us a "
-            f"load, {rate / 1e9:.3f} G loads a second (median of 5, CUDA "
-            f"events)")
+        log(f"phase 2g latency probe, {setting}, {tag} ({blocks} x "
+            f"{threads} threads, {steps} dependent 8-byte loads each over "
+            f"the {o2.shape[0]}-row O2 table, {o2.numel() * 4 / 1e9:.3f} "
+            f"GB): {us[tag]:.4f} us a load, {rate / 1e9:.3f} G loads a "
+            f"second (median of 5, CUDA events)")
     return us["one thread"], rate
 
 
@@ -1530,7 +1603,8 @@ def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
         want = _sa_lookup16(*args, ks, stats=st)
         err = fields_err(got, want)
         worst["sa_walk"] = max(worst["sa_walk"], err)
-        ms = launch_ms(loop_launcher("sa_walk", idx, ks), 20)
+        go = loop_launcher("sa_walk", idx, ks)
+        ms, cold = launch_ms(go, 20), cold_ms(go)
         call_ms = median_ms(lambda: sa_cuda.sa_walk_kernel(idx, ks), 5)
         plain_ms = median_ms(lambda: _sa_lookup16(*args, ks), 3)
         isz = ks.element_size()
@@ -1541,7 +1615,8 @@ def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
             f"max_abs_err={err}; {st['rounds']} rounds (the longest walk), "
             f"{st['steps']} steps, {st['sectors']} distinct O2 sectors, "
             f"{st['sa_rows']} SA rows; kernel {ms:.4f} ms (20 launches back "
-            f"to back, median of 3), the wrapper's call {call_ms:.4f} ms "
+            f"to back, median of 3), {cold:.4f} ms with the L2 flushed (one "
+            f"launch, median of 11), the wrapper's call {call_ms:.4f} ms "
             f"(median of 5), plain {plain_ms:.2f} ms (median of 3), CUDA "
             f"events; bound "
             f"{b_ms:.5f} ms by {b_by} ({nb} B, {ops} operations), "
@@ -1549,17 +1624,36 @@ def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
             f"{floor(ms, st['rounds'], st['steps'])}; "
             f"{ms * 1e3 / max(st['rounds'], 1):.3f} us a step")
         if timed and idx is fm:
-            res["sa_walk"] = {"ms": ms, "call_ms": call_ms,
+            res["sa_walk"] = {"ms": ms, "cold_ms": cold, "call_ms": call_ms,
                               "plain_ms": plain_ms, "bound_ms": b_ms,
                               "bound_by": b_by, "steps": st["rounds"]}
+        sets = {"a": (ms, cold)}
+        for name, what, sub in sa_sets(ks, st["walk_steps"])[1:]:
+            got = one("sa_walk", sa_cuda.sa_walk_kernel, idx, sub)
+            sst = {}
+            err = fields_err(got, _sa_lookup16(*args, sub, stats=sst))
+            worst["sa_walk"] = max(worst["sa_walk"], err)
+            go = loop_launcher("sa_walk", idx, sub)
+            sets[name] = w_ms, c_ms = launch_ms(go, 20), cold_ms(go)
+            rounds = max(sst["rounds"], 1)
+            log(f"phase 2g sa_walk set ({name}) {what} (N={len(sub)}, "
+                f"{idx.idt}): max_abs_err={err}; {sst['rounds']} rounds, "
+                f"{sst['steps']} steps; kernel {w_ms:.4f} ms (20 launches "
+                f"back to back, median of 3), {w_ms * 1e3 / rounds:.4f} us "
+                f"a round; with the L2 flushed {c_ms:.4f} ms (one launch, "
+                f"median of 11), {c_ms * 1e3 / rounds:.4f} us a round; CUDA "
+                f"events; {floor(c_ms, sst['rounds'], sst['steps'])} (with "
+                f"the L2 flushed)")
+        log(f"phase 2g sa_walk sets ({idx.idt}), ms back to back / with the "
+            f"L2 flushed: " + ", ".join(
+                f"({k}) {w:.4f} / {c:.4f}" for k, (w, c) in sets.items())
+            + f"; (b) + (c) {sets['b'][0] + sets['c'][0]:.4f} / "
+            f"{sets['b'][1] + sets['c'][1]:.4f} against (a); the lone "
+            f"dependent load {lat_us:.4f} us")
 
     q4, l4, _ = spy.fwd_calls["4"]
     q2, l2, m2, s2 = spy.p2_call
-    edges = [0, fm.primary, fm.seq_len] + list(
-        range(0, fm.seq_len + 1, fm.sa_intv * 997))[:1000]
-    ks = torch.cat([spy.sa_ks.to(torch.int64),
-                    torch.tensor(edges, dtype=torch.int64,
-                                 device=spy.sa_ks.device)])
+    ks = sa_edge_ks(fm, spy.sa_ks)
     ones4 = torch.ones(len(q4), dtype=torch.int64, device=q4.device)
     for idx in (fm, fm64):
         p3_case("phase 4's first microbatch", idx, q4, l4, True)
@@ -1594,47 +1688,74 @@ def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
     return res
 
 
+def sa_edge_ks(fm, sa_ks) -> torch.Tensor:
+    """Phase 4's first SA prefetch plus 0, primary, seq_len and multiples
+    of sa_intv, int64."""
+    edges = [0, fm.primary, fm.seq_len] + list(
+        range(0, fm.seq_len + 1, fm.sa_intv * 997))[:1000]
+    return torch.cat([sa_ks.to(torch.int64),
+                      torch.tensor(edges, dtype=torch.int64,
+                                   device=sa_ks.device)])
+
+
+def sa_sets(ks, walk_steps) -> list:
+    """The SA walk's sets of phase 2g, [(name, what, indices)]: (a) all of
+    ks; (b) all but the 1% longest walks (the heavy phase, every walk in
+    flight); (c) the 1% longest walks alone (the latency tail: time over
+    rounds is a step at low load); (d) the longest walk alone (a step with
+    nothing else in flight). Each keeps ks's order."""
+    n_tail = -(-len(ks) // 100)
+    tail = torch.zeros(len(ks), dtype=torch.bool, device=ks.device)
+    tail[torch.argsort(walk_steps, stable=True)[-n_tail:]] = True
+    longest = int(torch.argmax(walk_steps))
+    return [("a", "all", ks),
+            ("b", "all but the 1% longest walks", ks[~tail]),
+            ("c", "the 1% longest walks alone", ks[tail]),
+            ("d", "the longest walk alone", ks[longest: longest + 1])]
+
+
 # -- --fwd-turns: kernels 4 and 5 against other builds, in turns --------------
 
 TURN_PAIRS = 8_192  # one microbatch of 16,384 reads
 
 
-def build_turn_libs(dirs) -> dict:
-    """This checkout's csrc/fwd_automata.cu and each DIR's (with the o2.cuh
-    beside it), built side by side with nvcc into build/kernels/turns/;
-    {label: ctypes library}, this checkout first as "this"."""
+def build_turn_libs(dirs, name: str = "fwd_automata") -> dict:
+    """This checkout's csrc/<name>.cu and each DIR's (with the o2.cuh
+    beside it), built side by side with nvcc into
+    build/kernels/turns/<name>/; {label: ctypes library}, this checkout
+    first as "this"."""
     from mpibwa_tpu_torch.ops import _build
 
-    libs = {"this": _build.load("fwd_automata")}
-    for line in ptxas_lines("fwd_automata"):
-        log(f"fwd-turns this: -Xptxas -v {line}")
+    libs = {"this": _build.load(name)}
+    for line in ptxas_lines(name):
+        log(f"turns this: -Xptxas -v {line}")
     jobs = []
     for i, d in enumerate(dirs):
-        out = os.path.join(REPO, "build", "kernels", "turns", str(i))
+        out = os.path.join(REPO, "build", "kernels", "turns", name, str(i))
         os.makedirs(out, exist_ok=True)
-        so = os.path.join(out, "libfwd_automata.so")
+        so = os.path.join(out, f"lib{name}.so")
         cmd = ([_build._nvcc()] + _build.ARCH_FLAGS
                + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                  "-Xptxas", "-v", "-o", so,
-                  os.path.join(d, "fwd_automata.cu")])
+                  "-Xptxas", "-v", "-o", so, os.path.join(d, name + ".cu")])
         jobs.append((d, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.PIPE,
                                              text=True)))
     for d, so, proc in jobs:
         _, err = proc.communicate()
         if proc.returncode != 0:
-            raise Failed(f"fwd-turns: nvcc failed for {d}:\n{err}")
+            raise Failed(f"turns: nvcc failed for {d}:\n{err}")
         _build.build_logs[d] = err
         for line in ptxas_lines(d):
-            log(f"fwd-turns {d}: -Xptxas -v {line}")
+            log(f"turns {d}: -Xptxas -v {line}")
         libs[d] = ctypes.CDLL(so)
     return libs
 
 
 def time_turns(tag, libs, name, idx, args, reps, steps, want,
-               unit="step") -> None:
+               unit="step", cold=False) -> None:
     """Each build once against want (every field), then all timed in turns,
-    A B .. B A (launch_ms: the kernel alone, reps launches back to back)."""
+    A B .. B A (launch_ms: the kernel alone, reps launches back to back;
+    with cold, also cold_ms: one launch with the L2 flushed)."""
     gos = {k: loop_launcher(name, idx, *args, lib=lib)
            for k, lib in libs.items()}
     for k, go in gos.items():
@@ -1642,16 +1763,25 @@ def time_turns(tag, libs, name, idx, args, reps, steps, want,
         torch.cuda.synchronize()
         err = fields_err(go.out, want)
         if err:
-            raise Failed(f"fwd-turns {tag}: {k} differs ({err})")
+            raise Failed(f"turns {tag}: {k} differs ({err})")
     order = list(libs)
     ms = {k: [] for k in order}
+    flushed = {k: [] for k in order}
     for k in order + order[::-1]:
         ms[k].append(launch_ms(gos[k], reps))
-    log(f"fwd-turns {tag}: every build max_abs_err=0; in turns (kernel "
+        if cold:
+            flushed[k].append(cold_ms(gos[k]))
+    log(f"turns {tag}: every build max_abs_err=0; in turns (kernel "
         f"alone, {reps} launches back to back, median of 3, CUDA events): "
         + "; ".join(f"{k} {' / '.join(f'{t:.4f}' for t in ms[k])} ms "
                     f"({np.median(ms[k]) * 1e3 / steps:.3f} us a {unit})"
                     for k in order))
+    if cold:
+        log(f"turns {tag}: with the L2 flushed (one launch, median of 11, "
+            f"CUDA events): " + "; ".join(
+                f"{k} {' / '.join(f'{t:.4f}' for t in flushed[k])} ms "
+                f"({np.median(flushed[k]) * 1e3 / steps:.3f} us a {unit})"
+                for k in order))
 
 
 def fwd_turns(args) -> int:
@@ -1666,31 +1796,10 @@ def fwd_turns(args) -> int:
     which phase 2g holds to them) and timed in turns."""
     import _torch_toy
     from mpibwa_tpu_torch.core.opts import mem_opt_init
-    from mpibwa_tpu_torch.index.format import load_index
     from mpibwa_tpu_torch.ops import seeding
-    from mpibwa_tpu_torch.ops.fmd import DeviceFMIndex
 
-    torch.cuda.set_device(0)
-    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], check=True,
-                       capture_output=True, text=True,
-                       timeout=60).stdout.strip())
     libs = build_turn_libs(args.fwd_turns)
-    ref, chrom = build_genome(args.seed, args.genome_bp)
-    work = os.path.join(REPO, "build", "turns")
-    r1, r2 = _torch_toy.simulate_pairs({"chr1": chrom}, TURN_PAIRS,
-                                       seed=args.seed + 1)
-    fq = [os.path.join(work, f"r{i}.fq") for i in (1, 2)]
-    os.makedirs(work, exist_ok=True)
-    for path, reads in zip(fq, (r1, r2)):
-        write_reads(path, reads)
-    spy = Spy()
-    run_cli(os.path.join(work, "pe"), ["-t", "1", "-o", "out", ref] + fq,
-            spy, "device", capture="4")
-    fm = spy.runtimes[-1].aligners[0].dfm
-    spy.close()
-    fm64 = DeviceFMIndex(load_index(ref), fm.o2_tables().device,
-                         force_wide=True)
+    chrom, fm, fm64, spy = turn_inputs(args)
     opt = mem_opt_init()
     msl, mi = opt.min_seed_len, opt.max_mem_intv
     q4, l4, _ = spy.fwd_calls["4"]
@@ -1733,6 +1842,71 @@ def fwd_turns(args) -> int:
                     msl, mi), 3, WIDE_BP,
                tuple(type(t)(*(f[-1:] for f in t)) for t in this.out),
                "base")
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def turn_inputs(args) -> tuple:
+    """The inputs of the turn modes: the card's name and power limit, the
+    genome, then a PE run through the CLI on TURN_PAIRS pairs that
+    captures its first microbatch (Spy capture "4"). Returns (chromosome,
+    int32 index, int64 index of the same genome, the spy)."""
+    import _torch_toy
+    from mpibwa_tpu_torch.index.format import load_index
+    from mpibwa_tpu_torch.ops.fmd import DeviceFMIndex
+
+    torch.cuda.set_device(0)
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], check=True,
+                       capture_output=True, text=True,
+                       timeout=60).stdout.strip())
+    ref, chrom = build_genome(args.seed, args.genome_bp)
+    work = os.path.join(REPO, "build", "turns")
+    r1, r2 = _torch_toy.simulate_pairs({"chr1": chrom}, TURN_PAIRS,
+                                       seed=args.seed + 1)
+    fq = [os.path.join(work, f"r{i}.fq") for i in (1, 2)]
+    os.makedirs(work, exist_ok=True)
+    for path, reads in zip(fq, (r1, r2)):
+        write_reads(path, reads)
+    spy = Spy()
+    run_cli(os.path.join(work, "pe"), ["-t", "1", "-o", "out", ref] + fq,
+            spy, "device", capture="4")
+    fm = spy.runtimes[-1].aligners[0].dfm
+    spy.close()
+    fm64 = DeviceFMIndex(load_index(ref), fm.o2_tables().device,
+                         force_wide=True)
+    return chrom, fm, fm64, spy
+
+
+def sa_turns(args) -> int:
+    """--sa-turns DIR ...: kernel 6 of this checkout against the builds of
+    other sa_walk.cu sources with the same C entry point (an earlier
+    design, another block shape), on one card: the first SA prefetch of a
+    PE run on TURN_PAIRS pairs plus phase 2g's edge indices, at both
+    position types, on phase 2g's sets (a)-(d), after phase 2g's probe.
+    Every build is held to the plain _sa_lookup16 on each set, then all
+    are timed in turns."""
+    from mpibwa_tpu_torch.ops.fmd import _sa_lookup16
+
+    libs = build_turn_libs(args.sa_turns, "sa_walk")
+    _, fm, fm64, spy = turn_inputs(args)
+    latency_probe(fm)
+    for idx in (fm, fm64):
+        ks = sa_edge_ks(fm, spy.sa_ks).to(idx.idt)
+        plain = functools.partial(_sa_lookup16, idx.o2_tables(), idx.L2,
+                                  idx.primary, idx.seq_len, idx.sa,
+                                  idx.sa_intv)
+        st = {}
+        plain(ks, stats=st)
+        for name, what, sub in sa_sets(ks, st["walk_steps"]):
+            sst = {}
+            want = plain(sub, stats=sst)
+            time_turns(f"sa_walk set ({name}) {what} (N={len(sub)}, "
+                       f"{idx.idt}, {sst['rounds']} rounds, {sst['steps']} "
+                       f"steps)", libs, "sa_walk", idx, (sub,), 20,
+                       sst["rounds"], want, "round", cold=True)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2228,6 +2402,9 @@ def main() -> int:
     ap.add_argument("--fwd-turns", nargs="+", metavar="DIR",
                     help="time kernels 4 and 5 against the fwd_automata.cu "
                          "of each DIR, in turns (fwd_turns), and stop")
+    ap.add_argument("--sa-turns", nargs="+", metavar="DIR",
+                    help="time kernel 6 against the sa_walk.cu of each "
+                         "DIR, in turns (sa_turns), and stop")
     ap.add_argument("--plain-wide", nargs=4,
                     metavar=("REF", "FQ", "OUT", "PARENT_PID"),
                     help="the side process of phase 2g (plain_wide)")
@@ -2240,10 +2417,10 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     try:
-        if args.fwd_turns:
+        if args.fwd_turns or args.sa_turns:
             sys.path.insert(0, REPO)
             sys.path.insert(0, os.path.join(REPO, "tests"))
-            return fwd_turns(args)
+            return fwd_turns(args) if args.fwd_turns else sa_turns(args)
         return smoke(args)
     finally:
         for proc in SIDE:  # stop every side process, whatever happened

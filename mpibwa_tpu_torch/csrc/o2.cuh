@@ -11,9 +11,10 @@
 // group of G threads (G = 1, 2 or 4) shares them, each thread loading the
 // rows of its share (fwd_ranks), the group exchanging the ranks by
 // shuffles; the rows of one position lie in one sector, so a group's loads
-// touch one or two sectors. The SA walk reads a whole sector a step
-// (load_group: two 16-byte loads through the read-only path), the base it
-// reads and its rank. A row past either end of the table is taken at the
+// touch one or two sectors. The SA walk reads one whole sector a step (two
+// 16-byte loads through the read-only path): the base it reads and its
+// rank both come from it (inv_psi; its edges take the plain step of two
+// rows, inv_psi_edge). A row past either end of the table is taken at the
 // index clamped into range, as the plain versions' gathers do, so any
 // input gives their answer.
 //
@@ -54,36 +55,9 @@ struct O2Fm {
   P seq_len;
 };
 
-// the four rows of a sub-block
-struct Group {
-  int2 r[4];
-};
-
 template <typename P>
 __device__ __forceinline__ P clamp_row(P idx, P n) {
   return idx < 0 ? (P)0 : (idx > n - 1 ? n - 1 : idx);
-}
-
-template <typename P>
-__device__ __forceinline__ Group load_group(const O2Fm<P>& fm, P sb) {
-  const P base = sb * 4;
-  Group g;
-  if (base >= 0 && base + 3 < fm.n_rows) {
-    const int4* p = reinterpret_cast<const int4*>(fm.rows + base);
-    const int4 a = __ldg(p), b = __ldg(p + 1);
-    g.r[0] = make_int2(a.x, a.y); g.r[1] = make_int2(a.z, a.w);
-    g.r[2] = make_int2(b.x, b.y); g.r[3] = make_int2(b.z, b.w);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      g.r[j] = __ldg(fm.rows + clamp_row(base + j, fm.n_rows));
-  }
-  return g;
-}
-
-// g.r[c] without a dynamically indexed (local-memory) array
-__device__ __forceinline__ int2 pick(const Group& g, int c) {
-  return c == 0 ? g.r[0] : c == 1 ? g.r[1] : c == 2 ? g.r[2] : g.r[3];
 }
 
 template <typename P>
@@ -125,14 +99,6 @@ __device__ __forceinline__ At<P> at(const O2Fm<P>& fm, P pos) {
   a.k = stored(fm, a.sent ? (P)0 : pos);
   a.sb = a.k >> 4;
   return a;
-}
-
-// rank of base c at a from its sub-block's rows (0 at the sentinel)
-template <typename P>
-__device__ __forceinline__ int rank_in(const Group& g, const At<P>& a, int c) {
-  if (a.sent) return 0;
-  const int2 row = pick(g, c);
-  return row.x + count_prefix(row.y, c, (int)(a.k & 15));
 }
 
 // rank of base c at a from its one row, loaded here (0 at the sentinel,
@@ -224,31 +190,63 @@ __device__ __forceinline__ void extend1_fwd(const O2Fm<P>& fm, P ik0, P ik1,
   k0n = wadd(wadd(ik0, add), wsub(gl, gk));
 }
 
-// One step of the bwt_sa walk, k -> inv_psi(k) (bwt.c:86-96 through the O2
-// table, ops/fmd._sa_lookup16): the base of the BWT at k and its rank,
-// from one sector (the base's row lies in the sector of its word unless k
-// is the sentinel's own position, whose result is 0 anyway).
+// One step of the bwt_sa walk as the plain version takes it
+// (ops/fmd._sa_lookup16): the base c of the BWT at x from row 0 of x's
+// sub-block, its rank at k from row c of stored(k)'s sub-block (0 at the
+// sentinel, k < 0), both rows clamped into the table; k == seq_len takes
+// the rank from the L2 difference, k == primary steps to 0. Two dependent
+// loads: inv_psi takes it only at these edges.
 template <typename P>
-__device__ __forceinline__ P inv_psi(const O2Fm<P>& fm, P k) {
-  const P x = k - (k > fm.primary ? 1 : 0);
-  const P sbx = x >> 4;
-  const Group g = load_group(fm, sbx);
-  const unsigned sh = (unsigned)((~x) & 15) << 1;
-  const int c = (int)(((unsigned)g.r[0].y >> sh) & 3u);
-  const At<P> a = at(fm, k);
-  int occ;
-  if (a.sent) {
-    occ = 0;
-  } else if (a.sb == sbx) {
-    occ = rank_in(g, a, c);
-  } else {  // another sector, or a clamped row
-    const int2 row = __ldg(fm.rows + clamp_row(a.sb * 4 + c, fm.n_rows));
-    occ = row.x + count_prefix(row.y, c, (int)(a.k & 15));
-  }
-  if (k == fm.seq_len)
-    occ = (int)wsub(pick5(fm.l2, c + 1), pick5(fm.l2, c));
+__device__ __forceinline__ P inv_psi_edge(const O2Fm<P>& fm, P k, P x) {
+  const int2 r0 = __ldg(fm.rows + clamp_row((x >> 4) * 4, fm.n_rows));
+  const int c = (int)(((unsigned)r0.y >> (((~x) & 15) << 1)) & 3u);
+  int occ = rank_at(fm, at(fm, k), c);
+  if (k == fm.seq_len) occ = (int)wsub(pick5(fm.l2, c + 1), pick5(fm.l2, c));
   const P val = wadd(pick5(fm.l2, c), (P)occ);
   return k == fm.primary ? (P)0 : val;
+}
+
+// One step of the bwt_sa walk, k -> inv_psi(k) (bwt.c:86-96 through the O2
+// table, ops/fmd._sa_lookup16), from one 32-byte sector load.
+//
+// The plain version takes the base c of the BWT at x = k - (k > primary)
+// from row 0 of x's sub-block, then the rank of c at stored(k) = k - (k >=
+// primary) from row c of stored(k)'s sub-block. For k >= 0 the two offsets
+// differ only at k == primary. So for every k of the table but primary,
+// seq_len and the sentinel (k < 0), the rank is taken from row c of x's
+// own sector at x & 15, and the step loads that one sector; those three
+// edges, and any index past the table, take the plain step
+// (inv_psi_edge). tests/test_torch_fwd_kernel.py walks every index of two
+// small indices, one with primary % 16 == 0, where stored(primary) lies
+// in another sub-block.
+//
+// Before the load only the sector's address is worked out; the base's
+// shift and the prefix mask, which depend on k alone, while it is in
+// flight. After the load come only the base; its count in the prefix, by an XOR
+// with the base repeated in every 2-bit field (11 where the base is c) and
+// one masked popcount, which needs no correction of the pad; the picks of
+// row c's count and of L2[c] by two-level select trees on the base; one
+// add; and the next step's address. The count reads row 0's word: every
+// row of a sub-block holds the same packed word (ops/backward8.build_o2).
+template <typename P>
+__device__ __forceinline__ P inv_psi(const O2Fm<P>& fm, P k) {
+  using U = typename Unsigned<P>::T;
+  const P x = k - (k > fm.primary ? 1 : 0);
+  const P sb = x >> 4;
+  if ((U)sb >= (U)(fm.n_rows >> 2) || k == fm.primary || k == fm.seq_len)
+    return inv_psi_edge(fm, k, x);  // the sentinel (x < 0) lands here too
+  const unsigned sh = (unsigned)((~x) & 15) << 1;  // the base's shift
+  const unsigned keep = (0xFFFFFFFFu << sh) & 0x55555555u;  // bases 0..x&15
+  const int4* p = reinterpret_cast<const int4*>(fm.rows) + 2 * sb;
+  const int4 a = __ldg(p), b = __ldg(p + 1);  // rows 0, 1 | rows 2, 3
+  const unsigned w = (unsigned)a.y;
+  const int c = (int)((w >> sh) & 3u);
+  const unsigned m = ~(w ^ (0x55555555u * (unsigned)c));
+  const int occ = ((c & 2) ? ((c & 1) ? b.z : b.x) : ((c & 1) ? a.z : a.x))
+                  + __popc(m & (m >> 1) & keep);
+  const P l2c = (c & 2) ? ((c & 1) ? fm.l2[3] : fm.l2[2])
+                        : ((c & 1) ? fm.l2[1] : fm.l2[0]);
+  return wadd(l2c, (P)occ);
 }
 
 }  // namespace mpibwa

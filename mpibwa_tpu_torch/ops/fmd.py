@@ -387,7 +387,7 @@ def _sa_lookup16(o2, l2, primary: int, seq_len: int, sa, sa_intv: int,
     card every walk is one launch of the kernel. A stats dict, where given,
     receives what the walk needs, for a bound: its rounds (the longest
     walk), steps, distinct O2 sub-blocks (32-byte sectors) and distinct SA
-    rows."""
+    rows; and each walk's steps (``walk_steps``, a tensor like ks)."""
     idt = ks.dtype
     mask = sa_intv - 1  # sa_intv is a power of two
     n_rows = o2.shape[0]
@@ -428,4 +428,5 @@ def _sa_lookup16(o2, l2, primary: int, seq_len: int, sa, sa_intv: int,
         stats["sectors"] = (int(torch.unique(torch.cat(blocks)).numel())
                             if blocks else 0)
         stats["sa_rows"] = int(torch.unique(row).numel())
+        stats["walk_steps"] = steps
     return steps + sa[row].to(idt)  # sa[0] == -1 wraps like the C uint64

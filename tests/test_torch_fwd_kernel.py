@@ -10,10 +10,11 @@ ops/fwd_cuda.py and ops/sa_cuda.py) against the JAX package's device loops
     pass-3 role, each automaton held in lockstep by a group of G threads
     that share out the step's four O2 rows and exchange the ranks by
     shuffles (G = 1, 2 and 4, the kernels' own among them); the SA walk one
-    index a thread. Equal to the JAX loops on every output field, with
-    lanes that hold N bases, reads shorter than the batch width, starts
-    past 0 with min_intv > 1, lanes that overflow F_CAP, C_CAP and S3_CAP,
-    and the SA walk's edge indices;
+    index a thread, one O2 sector a step. Equal to the JAX loops on every
+    output field, with lanes that hold N bases, reads shorter than the
+    batch width, starts past 0 with min_intv > 1, lanes that overflow
+    F_CAP, C_CAP and S3_CAP, the SA walk's edge indices, and every SA
+    index of two small indices;
 (b) the wrappers on CPU tensors (their plain versions) equal to the JAX
     loops, and the seeder's call sites going through the wrappers;
 (c) on a card (marked ``gpu``, skipped without one) each kernel equal to
@@ -60,15 +61,6 @@ class O2Model:
         v &= m - 1
         return v - m if v >= m >> 1 else v
 
-    def group(self, sb: int) -> list:
-        """The four rows of sub-block sb (one 32-byte sector), or the rows
-        at the clamped indices past either end of the table."""
-        base = sb << 2
-        if 0 <= base and base + 3 < self.n_rows:
-            return self.rows[base: base + 4]
-        return [self.rows[min(max(base + j, 0), self.n_rows - 1)]
-                for j in range(4)]
-
     @staticmethod
     def count_prefix(word: int, c: int, within: int) -> int:
         keep = ~((1 << (30 - 2 * within)) - 1) & 0xFFFFFFFF
@@ -85,13 +77,6 @@ class O2Model:
         k = 0 if sent else pos
         k -= 1 if k >= self.primary else 0
         return sent, k, k >> 4
-
-    def rank_in(self, g, at, c: int) -> int:
-        sent, k, _ = at
-        if sent:
-            return 0
-        occ, word = g[c]
-        return occ + self.count_prefix(word, c, k & 15)
 
     def set_intv(self, c: int) -> "tuple[int, int, int]":
         w, l2 = self.wrap, self.l2
@@ -147,17 +132,33 @@ class O2Model:
         return k0n, k1n, s2
 
     def inv_psi(self, k: int) -> int:
+        """One step of the SA walk as csrc/o2.cuh inv_psi takes it, from
+        one sector, x's: the base and its count in the prefix from row 0's
+        word (an XOR with the base in every 2-bit field, one masked
+        popcount), the count at the sub-block's start from row c; primary,
+        seq_len, the sentinel and sectors past the table take the plain
+        step (inv_psi_edge)."""
         x = k - (1 if k > self.primary else 0)
-        g = self.group(x >> 4)
-        c = (g[0][1] & 0xFFFFFFFF) >> (((~x) & 15) << 1) & 3
-        at = self.at(k)
-        if at[0]:
-            occ = 0
-        elif at[2] == x >> 4:
-            occ = self.rank_in(g, at, c)
-        else:
-            row = self.rows[min(max((at[2] << 2) + c, 0), self.n_rows - 1)]
-            occ = row[0] + self.count_prefix(row[1], c, at[1] & 15)
+        sb = x >> 4
+        if not 0 <= sb < self.n_rows >> 2 or k in (self.primary,
+                                                    self.seq_len):
+            return self.inv_psi_edge(k, x)
+        g = self.rows[sb * 4: sb * 4 + 4]
+        sh = (15 - (x & 15)) << 1
+        w = g[0][1] & 0xFFFFFFFF
+        c = w >> sh & 3
+        m = ~(w ^ 0x55555555 * c) & 0xFFFFFFFF
+        keep = (0xFFFFFFFF << sh) & 0x55555555
+        return self.wrap(self.l2[c] + g[c][0]
+                         + bin(m & m >> 1 & keep).count("1"))
+
+    def inv_psi_edge(self, k: int, x: int) -> int:
+        """The plain step (csrc/o2.cuh inv_psi_edge): the base from row 0
+        of x's sub-block, its rank at k from its own row (rank_at), both
+        clamped into the table."""
+        r0 = self.rows[min(max((x >> 4) * 4, 0), self.n_rows - 1)]
+        c = (r0[1] & 0xFFFFFFFF) >> (((~x) & 15) << 1) & 3
+        occ, _ = self.rank_at(self.at(k), c)
         if k == self.seq_len:
             occ = self.l2[c + 1] - self.l2[c]
         return 0 if k == self.primary else self.wrap(self.l2[c] + occ)
@@ -637,6 +638,57 @@ def test_model_sa_walk(fms, jax_out):
     assert int(want[ks == m.primary][0]) == 0
 
 
+# two small indices of a uniform random genome, (seed, bp, whether primary
+# starts a sub-block): seed 35's has primary % 16 == 0, so stored(primary)
+# = primary - 1 lies in another sub-block than primary; in both, primary
+# is no multiple of sa_intv, so the walk from primary takes its step
+SMALL = ((35, 3000, True), (0, 2999, False))
+
+
+@pytest.fixture(scope="module", params=SMALL, ids=lambda p: f"seed{p[0]}")
+def small_index(request, tmp_path_factory):
+    """(index, whether primary starts a sub-block) of a SMALL genome."""
+    from mpibwa_tpu_torch.index.build import build_index
+
+    seed, bp, on_start = request.param
+    rng = np.random.default_rng(seed)
+    ref = str(tmp_path_factory.mktemp(f"small{seed}") / "g.fa")
+    toy.write_fasta(ref, {"g": "".join("ACGT"[i]
+                                       for i in rng.integers(0, 4, bp))})
+    build_index(ref)
+    return load_index(ref), on_start
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["i32", "i64"])
+def test_sa_walk_every_index(small_index, wide):
+    """Every SA index 0..seq_len of a small index (0, primary, seq_len and
+    every multiple of sa_intv among them): the model of the kernel's
+    thread (one sector a step) and the port's plain _sa_lookup16 equal the
+    JAX walk exactly, on one index whose primary starts a sub-block and
+    one whose primary does not."""
+    import jax.numpy as jnp
+
+    from mpibwa_tpu.ops.fmd import DeviceFMIndex as JaxFM
+    from mpibwa_tpu_torch.ops.fmd import DeviceFMIndex, _sa_lookup16
+
+    idx, on_start = small_index
+    tfm = DeviceFMIndex(idx, CPU, force_wide=wide)
+    m = O2Model(tfm)
+    assert (m.primary % 16 == 0) == on_start and m.primary % m.sa_intv
+    ks = np.arange(m.seq_len + 1, dtype=tfm.np_idt)
+    want = np.asarray(JaxFM(idx, force_wide=wide).sa_lookup(jnp.asarray(ks)))
+    st = {}
+    got = _sa_lookup16(tfm._o2, tfm.L2, tfm.primary, tfm.seq_len, tfm.sa,
+                       tfm.sa_intv, torch.from_numpy(ks), stats=st)
+    np.testing.assert_array_equal(got.numpy(), want)
+    steps = st["walk_steps"].numpy()
+    assert steps.max() == st["rounds"] and steps.sum() == st["steps"]
+    assert (steps[ks % m.sa_intv == 0] == 0).all()
+    np.testing.assert_array_equal(
+        np.array([m.sa_walk(int(k)) for k in ks], dtype=want.dtype), want)
+    assert want[m.primary] == 0
+
+
 # -- (b) the wrappers on CPU tensors ------------------------------------------
 
 def test_wrappers_on_cpu_equal_jax(fms, batch, jax_out):
@@ -758,7 +810,10 @@ def test_kernels_match_plain_on_gpu(index, batch, wide, rows):
         _assert_fields(_np(got.__class__(*(t.cpu() for t in got))),
                        _np(want.__class__(*(t.cpu() for t in want))),
                        "forward_pass")
-    ks = torch.from_numpy(sa_indices(fm)).to(dev)
+    # the edge indices 0, primary and seq_len once more, then every index
+    ks = torch.from_numpy(np.concatenate([
+        sa_indices(fm), np.array([0, fm.primary, fm.seq_len], fm.np_idt),
+        np.arange(fm.seq_len + 1, dtype=fm.np_idt)])).to(dev)
     got = once(sa_cuda.sa_walk_kernel, fm, ks)
     want = _sa_lookup16(fm._o2, fm.L2, fm.primary, fm.seq_len, fm.sa,
                         fm.sa_intv, ks)
