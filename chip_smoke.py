@@ -3,9 +3,10 @@
 
 Phases, one printed line (or more) each:
   1. the card's name and power limit (nvidia-smi);
-  2. the six CUDA kernels' five sources (mpibwa_tpu_torch/csrc/extend.cu,
+  2. the seven CUDA kernels' six sources (mpibwa_tpu_torch/csrc/extend.cu,
      occ4_extend.cu, bwd_pass.cu, fwd_automata.cu with kernels 4 and 5,
-     sa_walk.cu) built from the checkout, one nvcc each, all started
+     sa_walk.cu, bwd_v8.cu) built from the checkout, one nvcc each, all
+     started
      together; then kernel 1 held against the plain PyTorch
      version (exact equality) on random problems at every window bucket
      and on the edge cases of tests/_torch_toy.extend_edge_cases, timed
@@ -37,18 +38,20 @@ Phases, one printed line (or more) each:
      neighbours, whether contig beats both of its neighbours (flat and
      the default) and whether v8 beats the default against both of its
      neighbours;
-  11. the v8 turn of phase 9 (PE, MPIBWA_EXT=device, phase 4's input):
-     its SAM byte-identical to phase 4's, its stages (fwd1, bwd1, pass2
-     with p2_fwd and p2_bwd), host reads of the backward, pass-2 runs on
-     the speculative route and redone, v8 passes redone on the flat engine
-     and peak device memory;
+  11. the v8 turn of phase 9 (PE, MPIBWA_EXT=device, phase 4's input),
+     each backward pass one launch of kernel 7 (csrc/bwd_v8.cu): its SAM
+     byte-identical to phase 4's, its stages (fwd1, bwd1, pass2 with
+     p2_fwd and p2_bwd), host reads of the backward, pass-2 runs on the
+     speculative route and redone, v8 passes redone on the flat engine and
+     peak device memory;
   15. the default in three turns, kernels / plain loops / kernels: in the
      middle turn the seeder's forward automata and SA walks run their
      plain versions (patched in, no knob); every SAM byte-identical to
      phase 4's; fwd1, p2_fwd and the SA walk (each call timed between two
      synchronizes) of each turn;
-  10. the default run and phase 8's once more on the first --traced-pairs
-     pairs (5,000) under torch.profiler (CUDA activity only): each
+  10. the default run, phase 8's and phase 11's once more on the first
+     --traced-pairs pairs (5,000) under torch.profiler (CUDA activity
+     only): each
      kernel's own device time summed over the run ("run_ms", over
      "run_pairs" pairs) and the card's busy share of the align time;
   2c. the occ4 kernel against the plain version (exact equality) on seeded
@@ -65,11 +68,17 @@ Phases, one printed line (or more) each:
      (median of 5 after a warm-up) and its bound over the pass;
   2e. the int64 position path: the phase 3 index loaded again with
      force_wide=True, collect_flat on the first 16,384 reads of phase 4's
-     input under v8 (== v8 on the int32 index in all three arrays), under
-     flat and under contig (each == v8 on (x0, x2, info), the offsets and
-     the fallback flags), v8, flat and contig on it timed in turns
-     (medians of 3 after a warm-up) with peak device memory and the
-     kernels' launches;
+     input under v8 with kernel 7 (== the plain torch v8 patched in, on
+     both indexes, and == v8 on the int32 index, in all three arrays),
+     under flat and under contig (each == v8 on (x0, x2, info), the
+     offsets and the fallback flags), all timed in turns (medians of 3
+     after a warm-up) with peak device memory, the kernels' launches and
+     each seeder's stages;
+  2i. the int64 main path end to end in process: the DeviceAligner of a
+     Runtime at `mem -t 1`'s chunk size over phase 2e's int64 index and
+     over the int32 one, on the first 16,384 pairs: byte-identical SAM,
+     kernel 7 launched on the int64 index (MPIBWA_BWD=auto), the pass
+     kernel on the int32 one;
   2f. the default's pass-1 backward of phase 4's first microbatch
      (DeviceSeeder._backward_rows, captured) replayed and timed in its
      parts (lane tables and entries, entry state, pass kernel, the rows'
@@ -87,7 +96,9 @@ Phases, one printed line (or more) each:
      seq_len and multiples of sa_intv (set a), and timed on (b) all but
      its 1% longest walks (the heavy phase), (c) those walks alone (the
      latency tail) and (d) the longest walk alone; phase 4's inputs again
-     on phase 2e's int64 index; the kernels' registers and spills
+     on phase 2e's int64 index; kernel 7 on the first pass-1 backward of
+     phase 11 (int32) and of phase 2i (int64) against the plain torch v8;
+     the kernels' registers and spills
      (-Xptxas -v); a dependent-load probe (csrc/sa_walk.cu) over the O2
      table: one thread, a warp on every SM, every SM full, at the card's
      default L2 fetch granularity and again at 32 bytes (then restored);
@@ -97,6 +108,11 @@ Phases, one printed line (or more) each:
      the latency floor (the longest lane's steps times the probe's lone
      dependent load) and the random-load floor (the steps' sector loads at
      the probe's full-card rate);
+  2h. positions past 2**31: a rank table (not a BWT) of 2**31 + 2**24
+     positions with random packed words and consistent cumulative counts,
+     through DeviceFMIndex.from_numpy; kernels 4, 5 and 7 at int64 held
+     exactly to their plain versions on A-rich reads whose intervals lie
+     above 2**31 (kernel 6 left out: on such a table a walk need not end);
   12. the record route (the route without the C runtime's chain and
      finalization: MPIBWA_FINAL=python MPIBWA_CHAIN=python) on phase 6's
      pairs, PE and SE: SAM byte-identical to phases 6 and 7's port runs on
@@ -119,7 +135,7 @@ Phases, one printed line (or more) each:
      and 2 launched; the short reads' lines equal a run on them alone, the
      wide read's the host spec engine's; fwd1 and its steps, the stages,
      launches and peak device memory.
-Phases 4, 8 and 9 print each kernel's launches by batch size; every
+Phases 4, 8, 9 and 11 print each kernel's launches by batch size; every
 default-chaining run (phases 4-11, 14, 15) must have chained in C, and
 every run but phase 15's plain turn must call no plain loop.
 Every launch count is set to 0 just before a run of the main path and read
@@ -146,6 +162,7 @@ error.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import functools
 import json
@@ -187,6 +204,12 @@ KERNELS = {
                 "replaces": "mpibwa_tpu/ops/fmd.py:589",
                 "replaces_what": "the XLA while_loop of _sa_lookup16 (not a "
                                  "Pallas kernel)"},
+    "bwd_v8": {"name": "bwd_v8", "route": "cuda",
+               "source": "mpibwa_tpu_torch/csrc/bwd_v8.cu",
+               "replaces": "mpibwa_tpu/ops/backward8.py:211",
+               "replaces_what": "the XLA loop of the v8 engine, _round8 "
+                                "driven by run_backward8 (not a Pallas "
+                                "kernel)"},
 }
 # the sources to build (csrc/<name>.cu), one nvcc each
 SOURCES = sorted({os.path.basename(k["source"])[:-3]
@@ -196,7 +219,7 @@ SYMBOLS = {"extend": "extend_kernel<", "occ4_extend": "occ4_extend_kernel",
            "bwd_pass": "bwd_pass_kernel<",
            "forward_p3": "forward_p3_kernel<",
            "forward_pass": "forward_pass_kernel<",
-           "sa_walk": "sa_walk_kernel<"}
+           "sa_walk": "sa_walk_kernel<", "bwd_v8": "bwd_v8_kernel<"}
 # the kernels every default run of the main path launches
 MAIN_KERNELS = ("extend", "bwd_pass", "forward_p3", "forward_pass",
                 "sa_walk")
@@ -218,6 +241,10 @@ OPS_PER_DP_CELL = 16  # adds, maxima and selects of one ksw_extend2 cell
 # about 15 more
 OPS_PER_O2_STEP = 4 * 12 + 2 * 6 + 40
 OPS_PER_SA_STEP = 12 + 6 + 8 + 15
+# of one step of the v8 kernel (a live entry's round with a query base):
+# two ranks of about 12, two positions of about 6 and about 15 of interval
+# arithmetic and the entry's update
+OPS_PER_V8_STEP = 2 * 12 + 2 * 6 + 15
 SECTOR = 32  # bytes of one O2 sub-block (4 rows of 8 B), read as a unit
 # every Q and T bucket of DeviceAligner.Q_BUCKETS / T_BUCKETS
 BUCKETS = [(64, 128), (128, 256), (192, 384), (256, 512), (512, 768),
@@ -427,7 +454,7 @@ class Spy:
     def __init__(self):
         from mpibwa_tpu_torch.ops import (bwd_cuda, extend_cuda, fmd,
                                           fwd_cuda, occ4_cuda, sa_cuda,
-                                          seeding)
+                                          seeding, v8_cuda)
         from mpibwa_tpu_torch.parallel.runtime import Runtime
         from mpibwa_tpu_torch.pipeline import device_seed
         from mpibwa_tpu_torch.pipeline.device_seed import DeviceSeeder
@@ -436,6 +463,7 @@ class Spy:
         self.fwd_calls = {}  # capture tag -> forward_p3 arguments
         self.p2_call = None  # the first pass-2 forward_pass arguments
         self.sa_ks = None  # the first SA walk's indices
+        self.v8_call = None  # the first v8 pass of a run tagged "11"
         self.capture = None  # the tag of the run being captured
         self.plain = False
         self.time_sa = False
@@ -451,7 +479,7 @@ class Spy:
         self.word_dtypes = []  # dtype of every pass-1 call-word tensor
         self._lock = threading.Lock()
         self._mods = (extend_cuda, occ4_cuda, bwd_cuda, fwd_cuda, sa_cuda,
-                      seeding, fmd)
+                      seeding, fmd, v8_cuda)
         self._real_loops = (fwd_cuda.forward_p3_kernel,
                             fwd_cuda.forward_pass_kernel,
                             sa_cuda.sa_walk_kernel)
@@ -461,6 +489,7 @@ class Spy:
         self._real_occ4 = occ4_cuda.extend_kernel
         self._real_bwd = bwd_cuda.run_backward_fused
         self._real_pass = bwd_cuda.bwd_pass_kernel
+        self._real_v8 = v8_cuda.v8_pass_kernel
         self._real_rows = DeviceSeeder._backward_rows
         self._real_words = device_seed.pack_call_words
         self.wrappers = self.kernel_wrappers()
@@ -523,6 +552,15 @@ class Spy:
             return sized("bwd_pass", spy._real_pass, state.shape[1], fm,
                          lanes, state, rounds)
 
+        def v8_pass(fm, qrows, entry, n_lanes, x0, minv, **k):
+            with spy._lock:
+                if spy.capture == "11" and spy.v8_call is None:
+                    spy.v8_call = v8_capture(fm, qrows, entry, n_lanes, x0,
+                                             minv, k)
+            return sized("bwd_v8", lambda *a: spy._real_v8(*a, **k),
+                         entry[0].shape[0], fm, qrows, entry, n_lanes, x0,
+                         minv)
+
         def words(*a):
             out = spy._real_words(*a)
             with spy._lock:
@@ -583,6 +621,7 @@ class Spy:
         occ4_cuda.extend_kernel = capture_occ4
         bwd_cuda.run_backward_fused = capture_bwd
         bwd_cuda.bwd_pass_kernel = size_pass
+        v8_cuda.v8_pass_kernel = v8_pass
         DeviceSeeder._backward_rows = capture_rows
         device_seed.pack_call_words = words
         seeding.forward_p3, seeding.forward_pass, fmd._sa_lookup16 = (
@@ -595,14 +634,15 @@ class Spy:
     def kernel_wrappers() -> dict:
         """Each kernel's wrapper, which counts its launches."""
         from mpibwa_tpu_torch.ops import (bwd_cuda, extend_cuda, fwd_cuda,
-                                          occ4_cuda, sa_cuda)
+                                          occ4_cuda, sa_cuda, v8_cuda)
 
         return {"extend": extend_cuda.extend_batch_kernel,
                 "occ4_extend": occ4_cuda.extend_kernel,
                 "bwd_pass": bwd_cuda.bwd_pass_kernel,
                 "forward_p3": fwd_cuda.forward_p3_kernel,
                 "forward_pass": fwd_cuda.forward_pass_kernel,
-                "sa_walk": sa_cuda.sa_walk_kernel}
+                "sa_walk": sa_cuda.sa_walk_kernel,
+                "bwd_v8": v8_cuda.v8_pass_kernel}
 
     @property
     def launches(self) -> dict:
@@ -630,11 +670,12 @@ class Spy:
         DeviceSeeder._backward_rows = self._real_rows
         device_seed.pack_call_words = self._real_words
         (extend_cuda, occ4_cuda, bwd_cuda, fwd_cuda, sa_cuda, seeding,
-         fmd) = self._mods
+         fmd, v8_cuda) = self._mods
         extend_cuda.extend_batch_kernel = self._real
         occ4_cuda.extend_kernel = self._real_occ4
         bwd_cuda.run_backward_fused = self._real_bwd
         bwd_cuda.bwd_pass_kernel = self._real_pass
+        v8_cuda.v8_pass_kernel = self._real_v8
         (fwd_cuda.forward_p3_kernel, fwd_cuda.forward_pass_kernel,
          sa_cuda.sa_walk_kernel) = self._real_loops
         seeding.forward_p3, seeding.forward_pass, fmd._sa_lookup16 = \
@@ -932,9 +973,9 @@ def phase2d(fm, call, toy, seed: int) -> dict:
     E, NL, L = state0.shape[1], qrows.shape[0], qrows.shape[1]
     want, c = pass_counts(fm, lanes, state0)
     worst, kst = check_pass(fm, lanes, state0, want, c["rounds"])
-    mems_k, _ = BC.pull_rows(BC.pack_emitted(kst, entry[1], lanes.lane_e), E)
-    mems_p, _ = BC.pull_rows(BC.pack_emitted(want, entry[1], lanes.lane_e),
-                             E)
+    mems_k = BC.pull_rows(BC.pack_emitted(kst, entry[1], lanes.lane_e), E)[0]
+    mems_p = BC.pull_rows(BC.pack_emitted(want, entry[1], lanes.lane_e),
+                          E)[0]
     if mems_k.shape != mems_p.shape or (mems_k != mems_p).any():
         raise Failed("pass kernel and plain pass emit different mems")
 
@@ -1006,12 +1047,36 @@ WIDE_READS = 16_384  # phase 2e: the first microbatch of phase 4's input
 WIDE_ROW = 16_384  # phase 2d: query rows padded past the kernel's 12,288
 
 
+@contextlib.contextmanager
+def plain_v8():
+    """A context in which the seeder's v8 passes run the plain torch v8
+    (ops/backward8.run_backward8) on the card instead of kernel 7 (the
+    wrapper's module attribute patched, no knob); yields a dict counting
+    the plain passes."""
+    from mpibwa_tpu_torch.ops import backward8 as B8
+    from mpibwa_tpu_torch.ops import v8_cuda
+
+    real, calls = v8_cuda.v8_pass_kernel, {"passes": 0}
+
+    def plain(fm, qrows, entry, n_lanes, x0, minv, max_len=None, **k):
+        calls["passes"] += 1
+        return B8.run_backward8(fm, qrows, entry, n_lanes, x0, minv, **k)
+
+    v8_cuda.v8_pass_kernel = plain
+    try:
+        yield calls
+    finally:
+        v8_cuda.v8_pass_kernel = real
+
+
 def phase2e(ref: str, fm32, reads):
     """The int64 position path on the phase 3 genome: collect_flat under v8
-    == v8 on the int32 index (all three arrays), flat and contig == v8 on
-    (x0, x2, info), the offsets and the fallback flags; v8, flat and contig
-    timed in turns (medians of 3 after a warm-up) with peak device
-    memory. Returns the int64 index (phase 2g)."""
+    (each pass one launch of kernel 7) == the plain torch v8 (all three
+    arrays) on both indexes, v8 on the int64 index == v8 on the int32 one,
+    flat and contig == v8 on (x0, x2, info), the offsets and the fallback
+    flags; every run timed in turns (medians of 3 after a warm-up) with
+    peak device memory, the kernels' launches and each seeder's stages.
+    Returns the int64 index (phases 2g, 2i)."""
     from mpibwa_tpu_torch.core.opts import mem_opt_init
     from mpibwa_tpu_torch.ops.fmd import DeviceFMIndex
     from mpibwa_tpu_torch.pipeline.device_seed import DeviceSeeder
@@ -1022,18 +1087,23 @@ def phase2e(ref: str, fm32, reads):
     log(f"phase 2e int64 index (force_wide) of the phase 3 genome on the "
         f"card in {time.time() - t0:.1f} s")
     qs = [s.seq for s in reads]
-    seeders = {k: DeviceSeeder(fm, mem_opt_init()) for k, fm in
-               (("v8 int32", fm32), ("v8", wide), ("flat", wide),
-                ("contig", wide))}
+    keys = (("v8", wide), ("v8 plain", wide), ("flat", wide),
+            ("contig", wide), ("v8 int32", fm32), ("v8 plain int32", fm32))
+    seeders = {k: DeviceSeeder(fm, mem_opt_init()) for k, fm in keys}
+    plain_passes = {k: 0 for k in seeders}
 
     def run(key):
         os.environ["MPIBWA_BWD"] = key.split()[0]
         try:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = seeders[key].collect_flat(qs)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t
+            with (plain_v8() if "plain" in key
+                  else contextlib.nullcontext()) as calls:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = seeders[key].collect_flat(qs)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+            if calls:
+                plain_passes[key] += calls["passes"]
         finally:
             os.environ.pop("MPIBWA_BWD", None)
         if out is None:
@@ -1043,23 +1113,37 @@ def phase2e(ref: str, fm32, reads):
     wrappers = Spy.kernel_wrappers()
     n0 = {k: fn.launches for k, fn in wrappers.items()}
     out = {k: run(k)[0] for k in seeders}  # the warm-up
-    same32 = all(np.array_equal(a, b)
-                 for a, b in zip(out["v8"], out["v8 int32"]))
+    launched = {k: fn.launches - n0[k] for k, fn in wrappers.items()}
+
+    def same(x, y, cols=None):
+        if cols is not None:
+            return (np.array_equal(x[0][:, cols], y[0][:, cols])
+                    and np.array_equal(x[1], y[1])
+                    and np.array_equal(x[2], y[2]))
+        return all(np.array_equal(a, b) for a, b in zip(x, y))
+
     a = out["v8"]
-
-    def meets_v8(b):
-        return (np.array_equal(a[0][:, [0, 2, 3]], b[0][:, [0, 2, 3]])
-                and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2]))
-
-    same_flat, same_contig = meets_v8(out["flat"]), meets_v8(out["contig"])
+    checks = {"v8 int64 == the plain v8 int64 (all three arrays)":
+              same(a, out["v8 plain"]),
+              "v8 int32 == the plain v8 int32 (all three arrays)":
+              same(out["v8 int32"], out["v8 plain int32"]),
+              "v8 int64 == v8 int32 (all three arrays)":
+              same(a, out["v8 int32"]),
+              "flat int64 == v8 int64 on (x0, x2, info), offsets and "
+              "fallback": same(a, out["flat"], [0, 2, 3]),
+              "contig int64 == v8 int64 on the same":
+              same(a, out["contig"], [0, 2, 3])}
     log(f"phase 2e {len(qs)} reads, {len(a[0])} seed rows, "
-        f"{int(a[2].sum())} reads to the host engine: v8 int64 == v8 int32 "
-        f"(all three arrays): {same32}; flat int64 == v8 int64 on (x0, x2, "
-        f"info), offsets and fallback: {same_flat}; contig int64 == v8 int64 "
-        f"on the same: {same_contig}")
-    if not (same32 and same_flat and same_contig):
+        f"{int(a[2].sum())} reads to the host engine: "
+        + "; ".join(f"{k}: {v}" for k, v in checks.items())
+        + f"; kernel launches over the warm-up {launched}; plain v8 passes "
+        f"{plain_passes}")
+    if not all(checks.values()):
         raise Failed("phase 2e: the int64 path disagrees")
-    times = {"v8": [], "flat": [], "contig": []}
+    if launched["bwd_v8"] <= 0 or not all(
+            plain_passes[k] for k in ("v8 plain", "v8 plain int32")):
+        raise Failed("phase 2e: kernel 7 or the plain v8 did not run")
+    times = {k: [] for k in seeders}
     peak = {k: 0 for k in times}
     for _ in range(3):
         for key in times:
@@ -1067,29 +1151,416 @@ def phase2e(ref: str, fm32, reads):
             got, dt = run(key)
             peak[key] = max(peak[key], torch.cuda.max_memory_allocated())
             times[key].append(dt)
-            if not all(np.array_equal(x, y) for x, y in zip(got, out[key])):
+            if not same(got, out[key]):
                 raise Failed(f"phase 2e: {key} changed between runs")
-    launched = {k: fn.launches - n0[k] for k, fn in wrappers.items()}
-    log(f"phase 2e kernel launches over its collect_flat runs: {launched}")
-    v8, fl = times["v8"], times["flat"]  # turns: v8, flat, contig, v8, ...
-    beats = all(v8[i] < fl[i] and (i == 0 or v8[i] < times["contig"][i - 1])
-                for i in range(3))
-    ct = times["contig"]
-    c_beats = all(ct[i] < fl[i] and (i == 2 or ct[i] < v8[i + 1])
-                  for i in range(3))
-    log(f"phase 2e int64: v8 {'beats' if beats else 'does not beat'} flat "
-        f"in every turn, and its other neighbour (contig) too; contig "
-        f"{'beats' if c_beats else 'does not beat'} both of its neighbours "
-        f"(flat before, v8 after) in every turn")
+    for tag, k, p in (("int64", "v8", "v8 plain"),
+                      ("int32", "v8 int32", "v8 plain int32")):
+        beats = all(x < y for x, y in zip(times[k], times[p]))
+        log(f"phase 2e {tag}: collect_flat with kernel 7 "
+            f"{'beats' if beats else 'does not beat'} the plain torch v8 in "
+            f"every turn: medians {np.median(times[k]):.3f} / "
+            f"{np.median(times[p]):.3f} s")
     for key in times:
         st = {k: round(v, 3) if isinstance(v, float) else v
               for k, v in seeders[key].times.items()}
-        log(f"phase 2e int64 {key}: collect_flat {np.median(times[key]):.3f} "
-            f"s (median of 3 after a warm-up, in turns; "
+        log(f"phase 2e {key}: collect_flat {np.median(times[key]):.3f} s "
+            f"(median of 3 after a warm-up, in turns; "
             f"{', '.join(f'{t:.3f}' for t in times[key])}); peak device "
             f"memory {peak[key] / 2**30:.3f} GiB (both indexes resident); "
             f"over its 4 runs: {st}")
     return wide
+
+
+INPROC_PAIRS = 16_384  # phase 2i: the first pairs of phase 4's input
+
+
+def v8_capture(fm, qrows, entry, n_lanes, x0, minv, kw) -> tuple:
+    """A v8 pass's arguments, copied: (fm, qrows, entries, n_lanes, x0,
+    minv, min_len, max_len, est_rows)."""
+    def cp(a):
+        return a.clone() if isinstance(a, torch.Tensor) else np.array(a)
+
+    return (fm, qrows.clone(), tuple(t.clone() for t in entry), n_lanes,
+            cp(x0), cp(minv), kw.get("min_len", 0), kw.get("max_len"),
+            kw.get("est_rows", 0))
+
+
+def phase2i(work, ref, fm32, fm64, paths, smi) -> tuple:
+    """The int64 main path end to end, in process, with no knob: the
+    aligner that the CLI's Runtime builds (DeviceAligner) sharing phase
+    2e's int64 index (dfm=fm64), and once more sharing the int32 index
+    (dfm=fm32), under a Runtime at `mem -t 1`'s chunk size, on the first
+    INPROC_PAIRS pairs of phase 4's input: byte-identical SAM; on the int64
+    index every backward pass is a launch of kernel 7 (MPIBWA_BWD=auto) and
+    the pass kernel never launches, on the int32 index the reverse. Returns
+    the int64 run's first v8 pass (v8_capture) for phase 2g and kernel 7's
+    launches in the int64 run."""
+    from mpibwa_tpu_torch.core.fm import FMIndex
+    from mpibwa_tpu_torch.core.refseq import RefSeq
+    from mpibwa_tpu_torch.io import headers as hdr
+    from mpibwa_tpu_torch.ops import v8_cuda
+    from mpibwa_tpu_torch.parallel.runtime import Runtime
+    from mpibwa_tpu_torch.pipeline.device_align import DeviceAligner
+
+    idx = host_index(ref)
+    fm_host, refs = FMIndex.from_index(idx), RefSeq(idx)
+    argv = ["-t", "1", "-o", "out", ref, paths["i1"], paths["i2"]]
+    real, got = v8_cuda.v8_pass_kernel, []
+
+    def capture(fm, qrows, entry, n_lanes, x0, minv, **k):
+        if not got:
+            got.append(v8_capture(fm, qrows, entry, n_lanes, x0, minv, k))
+        return real(fm, qrows, entry, n_lanes, x0, minv, **k)
+
+    sams, runs = {}, {}
+    for tag, dfm in (("int32", fm32), ("int64", fm64)):
+        opt = cli_opt()
+        rt = Runtime(idx, opt, use_device=False,
+                     fixed_chunk_size=opt.chunk_size * opt.n_threads,
+                     verbose=False)
+        al = DeviceAligner(idx, opt, dfm=dfm, fm=fm_host, refs=refs)
+        rt.aligners = [al]
+        out = os.path.join(work, f"inproc_{tag}")
+        wrappers = Spy.kernel_wrappers()
+        n0 = {k: fn.launches for k, fn in wrappers.items()}
+        os.environ.pop("MPIBWA_BWD", None)
+        v8_cuda.v8_pass_kernel = capture
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            rt.run(paths["i1"], paths["i2"], out,
+                   pg_line=hdr.make_pg_line(["mpibwa-tpu", "mem"] + argv))
+            torch.cuda.synchronize()
+        finally:
+            v8_cuda.v8_pass_kernel = real
+        wall = time.perf_counter() - t
+        n = {k: fn.launches - n0[k] for k, fn in wrappers.items()}
+        with open(out + ".sam", "rb") as fh:
+            sams[tag] = fh.read()
+        st = {k: round(v, 3) if isinstance(v, float) else v
+              for k, v in al.seeder.times.items()}
+        runs[tag] = n
+        log(f"phase 2i in-process DeviceAligner over the {tag} index "
+            f"({dfm.idt}) on {smi}: {2 * INPROC_PAIRS} reads in "
+            f"{rt.times['align']:.2f} s aligning "
+            f"({2 * INPROC_PAIRS / rt.times['align']:.1f} reads/s), "
+            f"{wall:.2f} s wall; kernel launches {n}; seeder {st}")
+    same = sams["int32"] == sams["int64"]
+    log(f"phase 2i SAM of the int64 index == the int32 index's: {same} "
+        f"({len(sams['int64'])} bytes)")
+    if not same:
+        raise Failed("phase 2i: the int64 main path's SAM differs")
+    if (runs["int64"]["bwd_v8"] <= 0 or runs["int64"]["bwd_pass"]
+            or runs["int32"]["bwd_v8"] or runs["int32"]["bwd_pass"] <= 0):
+        raise Failed(f"phase 2i: the backward kernels launched {runs}")
+    check_sam(sams["int64"], 2 * INPROC_PAIRS)
+    return got[0], runs["int64"]["bwd_v8"]
+
+
+def rows_err(got: np.ndarray, want: np.ndarray) -> int:
+    """Max abs difference of two row arrays; the difference of their row
+    counts where those differ."""
+    if got.shape != want.shape:
+        return max(1, abs(len(got) - len(want)))
+    if not len(got):
+        return 0
+    return int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max())
+
+
+def v8_trace(fm, inp) -> dict:
+    """What a v8 pass needs, for a bound: the rounds of its longest lane,
+    its steps (a live entry's round with a query base, two ranks each),
+    the distinct O2 sectors those ranks read and the query bytes read (a
+    lane's live entries share their i, so one byte a lane a round while
+    the lane has a live entry inside its row), from kernel 7's rule run in
+    torch over the flat state on the card (inp: v8_cuda.V8Inputs; one host
+    read a round, a trace and not a timed run)."""
+    from mpibwa_tpu_torch.ops.backward8 import _occ_c2
+
+    L = inp.q.shape[1]
+    dev = inp.ik.device
+    off = inp.lane_off.long()
+    E = int(off[-1])  # the entries in lanes
+    lane = torch.searchsorted(off[1:].contiguous(),
+                              torch.arange(E, device=dev), right=True)
+    qflat = inp.q.reshape(-1)
+    k0, s = inp.ik[:E, 0].clone(), inp.ik[:E, 2].to(torch.int32)
+    i = inp.x0[lane] - 1
+    minv, live = inp.minv[lane], inp.live[:E].clone()
+    l2 = fm.L2[:4]
+    rounds = steps = qbytes = 0
+    blocks = []
+    while bool(live.any()):
+        valid = (i >= 0) & (i < L)
+        qbytes += int(torch.unique(lane[live & valid]).numel())
+        qi = torch.where(valid, qflat[lane * L + i.clamp(0, L - 1).long()]
+                         .to(torch.int32), 4)
+        need = live & (qi < 4)
+        c = qi.clamp(max=3)
+        kq = k0 - 1
+        t = _occ_c2(fm.o2_tables(), fm.primary, torch.cat([kq, kq + s]),
+                    torch.cat([c, c]))
+        tk, s2 = t[:E], t[E:] - t[:E]
+        for pos in (kq[need], (kq + s)[need]):
+            p = pos.clamp(min=0)
+            blocks.append(torch.unique((p - (p >= fm.primary).to(p.dtype))
+                                       >> 4))
+        steps += int(need.sum())
+        keeper = need & (s2 >= minv)
+        k0 = torch.where(keeper, l2[c.long()] + 1 + tk, k0)
+        s = torch.where(keeper, s2, s)
+        i = torch.where(keeper, i - 1, i)
+        live = keeper
+        rounds += 1
+    sectors = (int(torch.unique(torch.cat(blocks)).numel()) if blocks
+               else 0)
+    return {"rounds": rounds, "steps": steps, "sectors": sectors,
+            "qbytes": qbytes}
+
+
+def v8_case(tag, call, floor, ptype) -> dict:
+    """Kernel 7 on a captured main-path pass against the plain torch v8 on
+    the card (rows in lane order, every column equal), one launch of the
+    wrapper; the kernel alone timed (20 launches back to back into the
+    same outputs: its inputs are read-only and every output slot is
+    written, so each launch starts from the same state), with the L2
+    flushed, the wrapper's call (its pull included) and the plain version
+    (CUDA events, medians); its bound and latency floor."""
+    from mpibwa_tpu_torch.ops import backward8 as B8
+    from mpibwa_tpu_torch.ops import v8_cuda as V
+
+    fm, qrows, entry, NL, x0, minv, min_len, max_len, est = call
+    E = entry[0].shape[0]
+    n0 = V.v8_pass_kernel.launches
+    got, ov = V.v8_pass_kernel(fm, qrows, entry, NL, x0, minv,
+                               min_len=min_len, raw=True, est_rows=est,
+                               max_len=max_len)
+    torch.cuda.synchronize()
+    if V.v8_pass_kernel.launches != n0 + 1:
+        raise Failed("phase 2g: bwd_v8 took other than one launch")
+    want, pov = B8.run_backward8(fm, qrows, entry, NL, x0, minv,
+                                 min_len=min_len, raw=True, est_rows=est)
+    err = rows_err(got, V.lane_order(want))
+    if ov or pov:
+        raise Failed(f"phase 2g: bwd_v8 {tag} overflowed (kernel {ov}, "
+                     f"plain {pov})")
+    inp = V.v8_inputs(fm, qrows, entry, NL, x0, minv, max_len)
+    out = V.v8_outputs(fm, E, qrows.device)
+
+    def go():
+        if V.v8_launch(fm, inp, out) != 0:
+            raise Failed("a timing launch of bwd_v8 failed")
+    go.keep = (inp.q,)
+    ms, cold = launch_ms(go, 20), cold_ms(go)
+    call_ms = median_ms(lambda: V.v8_pass_kernel(
+        fm, qrows, entry, NL, x0, minv, min_len=min_len, raw=True,
+        est_rows=est, max_len=max_len), 5)
+    plain_ms = median_ms(lambda: B8.run_backward8(
+        fm, qrows, entry, NL, x0, minv, min_len=min_len, raw=True,
+        est_rows=est), 3)
+    tr = v8_trace(fm, inp)
+    rounds = int(out.rounds[0])
+    if rounds != tr["rounds"]:
+        raise Failed(f"phase 2g: bwd_v8 ran {rounds} rounds, its trace "
+                     f"{tr['rounds']}")
+    pos = entry[0].element_size()
+    L = qrows.shape[1]
+    used = int(inp.lane_off[-1])  # the entries in lanes (v8_inputs)
+    n_live = int(entry[3].sum())  # all in lanes
+    # what the pass must move, once each: every entry in a lane its live
+    # flag and its outputs (k0, s, i, flags), a live one also the x[0] and
+    # x[2] it starts from (x[1] is never read); every lane its offset, x0
+    # and min_intv; the query bytes its live entries read (v8_trace); each
+    # O2 sector the ranks read
+    nbytes = (used * (1 + pos + 9) + n_live * 2 * pos + NL * 12
+              + tr["qbytes"] + SECTOR * tr["sectors"])
+    ops = OPS_PER_V8_STEP * tr["steps"]
+    b_ms, b_by = bound(nbytes, ops)
+    lanes = int((inp.lane_off[1:] > inp.lane_off[:-1]).sum())
+    log(f"phase 2g bwd_v8 {tag} (E={E}, {used} in lanes, {n_live} live "
+        f"entries in {lanes} lanes of {NL}, L={L}, {ptype}, {inp.slots} "
+        f"slots, min_len "
+        f"{min_len}): max_abs_err={err} over the {len(got)} rows against the "
+        f"plain v8 in lane order; {rounds} rounds (the longest lane), "
+        f"{tr['steps']} steps, {tr['sectors']} distinct O2 sectors, "
+        f"{tr['qbytes']} query bytes read; kernel "
+        f"{ms:.4f} ms (20 launches back to back, median of 3), {cold:.4f} ms "
+        f"with the L2 flushed (one launch, median of 11), the wrapper's "
+        f"call with the rows' compaction and pull (est_rows {est}) "
+        f"{call_ms:.4f} ms (median of 5), plain {plain_ms:.2f} ms (median "
+        f"of 3), CUDA events; bound "
+        f"{b_ms:.5f} ms by {b_by} ({nbytes} B, {ops} operations), "
+        f"{b_ms / ms:.4f} of the kernel's time; {floor(ms, rounds)}; "
+        f"{ms * 1e3 / max(rounds, 1):.3f} us a round")
+    return {"ms": ms, "cold_ms": cold, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "rounds": rounds, "max_abs_err": err}
+
+
+BIG_SEQ_LEN = 2**31 + 2**24  # phase 2h: positions of the rank table
+# phase 2h: the table's base shares; T so rare that L2[3] > 2**31 (every
+# interval of a T lies above 2**31, and ranks at x[1] of an A start there)
+BIG_BASES = (0.45, 0.27, 0.275, 0.005)
+BIG_READS = 4_096  # phase 2h: 101-bp reads, A-rich (READ_BASES)
+READ_BASES = (0.55, 0.15, 0.15, 0.15)
+BIG_CHUNK = 1 << 24  # words a chunk while the table is built on the card
+
+
+def big_table(dev, seed: int, seq_len: int) -> dict:
+    """Phase 2h's rank table as DeviceFMIndex.from_numpy's state: seq_len
+    random bases (shares BIG_BASES, from a torch generator on the card at
+    seed), packed 16 to a word MSB-first as the O2 table holds them; row
+    sb * 4 + c = [occ_c before sub-block sb, word sb], the counts
+    cumulative and consistent (int32), L2 their totals, primary a third of
+    the way in. Built on the card in chunks of BIG_CHUNK words and pulled
+    into one host array. It is a rank table, not a BWT: the SA and the
+    packed reference are stubs."""
+    n_words = seq_len // 16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cuts = [int(c * 65536) for c in np.cumsum(BIG_BASES)[:3]]
+    shift = torch.arange(30, -1, -2, dtype=torch.int64, device=dev)
+    o2 = np.empty((4 * n_words, 2), np.int32)
+    total = torch.zeros(4, dtype=torch.int64, device=dev)
+    for w0 in range(0, n_words, BIG_CHUNK):
+        m = min(BIG_CHUNK, n_words - w0)
+        u = torch.randint(0, 65536, (m, 16), generator=gen, device=dev,
+                          dtype=torch.int32)
+        codes = sum((u >= c).to(torch.int64) for c in cuts)
+        word = (codes << shift).sum(dim=1)
+        word = torch.where(word >= 2**31, word - 2**32, word)
+        counts = torch.stack([(codes == c).sum(dim=1) for c in range(4)],
+                             dim=1)
+        occ = torch.cumsum(counts, 0) - counts + total
+        total += counts.sum(dim=0)
+        rows = torch.stack([occ.to(torch.int32),
+                            word.to(torch.int32)[:, None].expand(m, 4)],
+                           dim=2)
+        o2[4 * w0: 4 * (w0 + m)] = rows.reshape(4 * m, 2).cpu().numpy()
+    tot = total.cpu().numpy()
+    l2 = np.concatenate([[0], np.cumsum(tot)]).astype(np.int64)
+    return {"_o2": o2, "L2": l2, "sa": np.zeros(1, np.int64),
+            "pac": np.zeros(1, np.uint8), "primary": seq_len // 3 + 5,
+            "seq_len": seq_len, "sa_intv": 32, "l_pac": seq_len // 2,
+            "idt": np.int64}
+
+
+def phase2h(dev, seed: int, smi: str) -> None:
+    """Positions past 2**31 on the card: big_table's rank table of
+    BIG_SEQ_LEN positions through DeviceFMIndex.from_numpy (int64), and the
+    int64 instances of kernels 4 (forward_p3), 5 (forward_pass, chained and
+    from starts with min_intv > 1) and 7 (v8, on pass 1's lanes as the
+    seeder builds them, min_len 0 and 19) held exactly to their plain
+    versions on BIG_READS A-rich reads; how many of the intervals lie above
+    2**31. The plain v8 runs without compactions here (MIN_CAP above the
+    entries: the compactions rest on v8's facts about a BWT's intervals),
+    which changes no output where those hold. Kernel 6 is left out: on a
+    table that is not a BWT an SA walk need not end."""
+    from mpibwa_tpu_torch.core.opts import mem_opt_init
+    from mpibwa_tpu_torch.ops import backward8 as B8
+    from mpibwa_tpu_torch.ops import fwd_cuda, seeding
+    from mpibwa_tpu_torch.ops import seeding_flat as SF
+    from mpibwa_tpu_torch.ops import v8_cuda as V
+    from mpibwa_tpu_torch.ops.fmd import DeviceFMIndex
+    from mpibwa_tpu_torch.pipeline import device_seed as DS
+
+    t0 = time.time()
+    fm = DeviceFMIndex.from_numpy(big_table(dev, seed, BIG_SEQ_LEN), dev)
+    torch.cuda.synchronize()
+    rows = fm.o2_tables().shape[0]
+    HI = 2**31
+    log(f"phase 2h a rank table of {BIG_SEQ_LEN} positions (2**31 + 2**24) "
+        f"on {smi}: {rows} O2 rows, {rows * 8 / 2**30:.3f} GiB on the card, "
+        f"built in {time.time() - t0:.1f} s; base shares {BIG_BASES}, L2 "
+        f"{fm.l2_host}, primary {fm.primary}. It is a rank table, not a "
+        f"BWT: this phase tests the int64 kernels' 64-bit arithmetic only; "
+        f"kernel 6 (the SA walk) is left out, since on a table that is not "
+        f"a BWT a walk need not end")
+    opt = mem_opt_init()
+    msl, mi = opt.min_seed_len, opt.max_mem_intv
+    rng = np.random.default_rng(seed)
+    B, RL = BIG_READS, 101
+    q = torch.from_numpy(rng.choice(4, size=(B, RL), p=READ_BASES)
+                         .astype(np.uint8)).to(dev)
+    lens = torch.full((B,), RL, dtype=torch.int32, device=dev)
+    ones = torch.ones(B, dtype=torch.int64, device=dev)
+    wrappers = Spy.kernel_wrappers()
+    n0 = {k: fn.launches for k, fn in wrappers.items()}
+    errs = {}
+
+    def above(fwd) -> str:
+        n = fwd.n_pushed.clamp(max=seeding.F_CAP)
+        ok = (torch.arange(seeding.F_CAP, device=dev)[None, :] < n[:, None])
+        iv = fwd.ivals[ok]
+        return (f"{int(((iv[:, 0] >= HI) | (iv[:, 1] >= HI)).sum())} of "
+                f"{len(iv)} pushed intervals with x[0] or x[1] at or above "
+                f"2**31")
+
+    got = fwd_cuda.forward_p3_kernel(fm, q, lens, ones, msl, mi)
+    want = seeding.forward_p3(fm, q, lens, ones, msl, mi)
+    errs["forward_p3"] = fields_err(got, want)
+    log(f"phase 2h forward_p3 (B={B}, L={RL}, int64): max_abs_err="
+        f"{errs['forward_p3']} over every field of both automata; "
+        f"{above(want[0])}; pass-3 seeds {int(want[1].n_seeds.sum())}")
+    starts = torch.from_numpy(rng.integers(0, RL, B).astype(np.int32)).to(dev)
+    minv = torch.from_numpy(rng.integers(1, 4, B)).to(dev)
+    errs["forward_pass"] = 0
+    for chain, st, mv in ((True, None, ones), (False, starts, minv)):
+        got = fwd_cuda.forward_pass_kernel(fm, q, lens, mv, chain, st)
+        fwd = seeding.forward_pass(fm, q, lens, mv, chain, st)
+        err = fields_err(got, fwd)
+        errs["forward_pass"] = max(errs["forward_pass"], err)
+        log(f"phase 2h forward_pass (chain={chain}, B={B}, int64): "
+            f"max_abs_err={err} over every field; {above(fwd)}; "
+            f"{int(fwd.n_calls.sum())} calls")
+        if chain:
+            fwd1 = fwd
+    # kernel 7 on pass 1's lanes, as the seeder builds them
+    nc = fwd1.n_calls.clamp(max=seeding.C_CAP).cpu().numpy()
+    ov = fwd1.overflow.cpu().numpy()
+    cs, cl, cx = (t.cpu().numpy() for t in (fwd1.call_start, fwd1.call_len,
+                                            fwd1.call_x))
+    arr = np.array([(b, cs[b, c], cl[b, c], cx[b, c], 1) for b in range(B)
+                    if not ov[b] for c in range(nc[b])], np.int64)
+    NL = DS._v8_lanes(len(arr))
+    lane_row, lane_tbl, x0, mv1, e = DS._lane_tables(arr, NL)
+    lrow = torch.from_numpy(lane_row).to(dev)
+    entry = SF.assemble_entries(fwd1.ivals, fwd1.infos, lrow,
+                                torch.from_numpy(lane_tbl).to(dev),
+                                B8.cap_bucket(e, 1024))
+    qrows = q[lrow.long()]
+    E = entry[0].shape[0]
+    live_hi = int((entry[3] & (entry[0][:, 0] >= HI)).sum())
+    errs["bwd_v8"] = 0
+    real_cap = B8.MIN_CAP
+    B8.MIN_CAP = E + 1
+    try:
+        for min_len in (0, 19):
+            got, gov = V.v8_pass_kernel(fm, qrows, entry, NL, x0, mv1,
+                                        min_len=min_len, raw=True,
+                                        est_rows=E,
+                                        max_len=int(arr[:, 2].max()))
+            want, wov = B8.run_backward8(fm, qrows, entry, NL, x0, mv1,
+                                         min_len=min_len, raw=True,
+                                         est_rows=E)
+            err = rows_err(got, V.lane_order(want))
+            if gov or wov:
+                err = max(err, 1)
+            errs["bwd_v8"] = max(errs["bwd_v8"], err)
+            log(f"phase 2h bwd_v8 (E={E}, {int(entry[3].sum())} live entries "
+                f"in {len(arr)} lanes, int64, min_len {min_len}): "
+                f"max_abs_err={err} over the {len(got)} rows against the "
+                f"plain v8 in lane order; {live_hi} live entries with x[0] "
+                f"at or above 2**31, {int((got[:, 0] >= HI).sum())} rows")
+    finally:
+        B8.MIN_CAP = real_cap
+    n = {k: fn.launches - n0[k] for k, fn in wrappers.items()}
+    log(f"phase 2h kernel launches {n}; max_abs_err {errs}")
+    del fm, entry, qrows
+    torch.cuda.empty_cache()
+    if any(errs.values()) or min(n[k] for k in errs) <= 0:
+        raise Failed(f"phase 2h: an int64 kernel disagrees past 2**31 or "
+                     f"did not launch: {errs}, {n}")
 
 
 def phase2f(call, seed_times: dict) -> None:
@@ -1131,12 +1602,12 @@ def phase2f(call, seed_times: dict) -> None:
     states = [state0.clone() for _ in range(6)]
     st, ms_kernel = timed(lambda: BC.bwd_pass_kernel(fm, lanes, states.pop()))
     N = len(arr)
-    (rows, _), ms_rows = timed(lambda: BC.pull_rows(
+    (rows, _, _), ms_rows = timed(lambda: BC.pull_rows(
         BC.pack_emitted(st, ent[1], lanes.lane_e, msl), N // 8 + 1024))
 
     def lists_route():
-        every, _ = BC.pull_rows(BC.pack_emitted(st, ent[1], lanes.lane_e),
-                                st.shape[1])
+        every = BC.pull_rows(BC.pack_emitted(st, ent[1], lanes.lane_e),
+                             st.shape[1])[0]
         mems = [[] for _ in range(N)]
         for x0, x1, x2, start, end, ln in every.tolist():
             mems[ln].append((x0, x1, x2, (start << 32) | end))
@@ -1301,20 +1772,45 @@ def loop_launcher(name, idx, *a, lib=None):
     return go
 
 
+def wide_lane(lens) -> int:
+    """The lane of phase 14c's wide read in its captured batch: the longest
+    row. It is the batch's last read only when the batch fills a
+    microbatch; a shorter tail is padded with dummy reads after it
+    (DeviceAligner._microbatches)."""
+    return int(torch.argmax(lens.cpu()))
+
+
+def splice_lane(part, lane: dict, k: int):
+    """part (a FwdOut or Pass3Out of the plain loop over every lane of a
+    batch but k) with one lane's outputs (numpy arrays by field name, as
+    plain_wide saves them without their prefix) put back at lane k, on the
+    CPU."""
+    return type(part)(*(torch.cat([a[:k].cpu(), torch.from_numpy(lane[n]),
+                                   a[k:].cpu()])
+                        for n, a in zip(part._fields, part)))
+
+
 def wide_case(fm, call, side, wide_out, one, worst, msl, mi,
               floor) -> None:
     """forward_p3 on phase 14c's batch against the plain loop: over the
-    short reads on the card here, and over the wide read (the last lane)
-    as the side process wrote it (plain_wide, on the CPU)."""
+    other lanes on the card here, and over the wide read (wide_lane) as
+    the side process wrote it (plain_wide, on the CPU)."""
     from mpibwa_tpu_torch.ops import fwd_cuda, seeding
 
     q, lens, _ = call
     ones = torch.ones(len(q), dtype=torch.int64, device=q.device)
+    k = wide_lane(lens)
+    if int(lens[k]) != WIDE_BP:
+        raise Failed(f"phase 2g: the longest read of phase 14c's batch has "
+                     f"{int(lens[k])} bases, not {WIDE_BP}")
     got = one("forward_p3", fwd_cuda.forward_p3_kernel, fm, q, lens, ones,
               msl, mi)
     ms = launch_ms(loop_launcher("forward_p3", fm, q, lens, ones, msl, mi), 3)
+    others = torch.cat([torch.arange(k), torch.arange(k + 1, len(q))]).to(
+        q.device)
     t = time.perf_counter()
-    short = seeding.forward_p3(fm, q[:-1], lens[:-1], ones[:-1], msl, mi)
+    short = seeding.forward_p3(fm, q[others], lens[others], ones[others],
+                               msl, mi)
     torch.cuda.synchronize()
     short_s = time.perf_counter() - t
     t = time.perf_counter()
@@ -1329,19 +1825,19 @@ def wide_case(fm, call, side, wide_out, one, worst, msl, mi,
                          f"{'timed out' if rc is None else f'exited {rc}'}"
                          f":\n{fh.read()[-3000:]}")
     d = np.load(wide_out)
-    want = tuple(
-        type(part)(*(torch.cat([a.cpu(), torch.from_numpy(d[f"{pre}_{n}"])])
-                     for n, a in zip(part._fields, part)))
-        for part, pre in zip(short, ("fwd", "p3")))
+    want = tuple(splice_lane(part, {n: d[f"{pre}_{n}"] for n in part._fields},
+                             k)
+                 for part, pre in zip(short, ("fwd", "p3")))
     err = fields_err(tuple(type(g)(*(t.cpu() for t in g)) for g in got),
                      want)
     worst["forward_p3"] = max(worst["forward_p3"], err)
     steps = int(d["steps"])
     log(f"phase 2g forward_p3 phase 14c's batch with the wide read "
-        f"(B={q.shape[0]}, L={q.shape[1]}, {fm.idt}): max_abs_err={err} over "
-        f"every field of both automata against the plain loop, over the "
-        f"short reads on the card ({short_s:.2f} s) and over the wide read "
-        f"alone on the CPU in a side process ({float(d['seconds']):.1f} s, "
+        f"(B={q.shape[0]}, L={q.shape[1]}, {fm.idt}, the wide read at lane "
+        f"{k}): max_abs_err={err} over every field of both automata against "
+        f"the plain loop, over the other lanes on the card ({short_s:.2f} s) "
+        f"and over the wide read alone on the CPU in a side process "
+        f"({float(d['seconds']):.1f} s, "
         f"{steps} rounds with up to 3 over-steps; waited {waited:.1f} s for "
         f"it here); fallback lanes {int(want[0].overflow.sum())}, pass-3 "
         f"overflow {int(want[1].overflow.sum())}; kernel {ms:.4f} ms (3 "
@@ -1447,10 +1943,15 @@ def ptxas_lines(name: str) -> "list[str]":
     for fn, body in re.findall(r"Compiling entry function '(\S+)' for "
                                r"'sm_90a'(.*?)(?=Compiling entry|\Z)",
                                _build.build_logs.get(name, ""), re.S):
-        kernel = re.search(r"(forward_p3|forward_pass|sa_walk|latency_probe)"
-                           r"_kernel", fn)
-        ptype = ("int64" if "IxE" in fn else "int32" if "IiE" in fn
-                 else "")
+        kernel = re.search(r"(forward_p3|forward_pass|sa_walk|latency_probe"
+                           r"|bwd_v8)_kernel", fn)
+        # a template's last argument is the position type (x: long long,
+        # i: int); kernel 7's first, Li<S>E, its slot count
+        slots = re.search(r"ILi(\d+)E[ix]E", fn)
+        ptype = ("int64" if re.search(r"[IE]xE", fn) else "int32"
+                 if re.search(r"[IE]iE", fn) else "")
+        if slots:
+            ptype += f" {slots.group(1)} slots"
         regs = re.search(r"Used (\d+) registers", body)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", body)
@@ -1461,7 +1962,7 @@ def ptxas_lines(name: str) -> "list[str]":
     return out
 
 
-def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
+def phase2g(fm, fm64, spy, launches, side, wide_out, v8_calls) -> dict:
     """The forward automata and SA walk kernels against their plain versions
     (ops/seeding.forward_p3, forward_pass, ops/fmd._sa_lookup16) on the
     card, every output field equal: forward_p3 on phase 4's first
@@ -1471,10 +1972,12 @@ def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
     (starts, min_intv > 1) and chained on phase 4's first microbatch and
     14a's reads; the SA walk on phase 4's first prefetch plus 0, primary,
     seq_len and multiples of sa_intv; phase 4's inputs again on the int64
-    index. Kernel and plain times (CUDA events, medians) at the main
-    path's shapes, each launch's bound and its latency floor: the longest
-    lane's steps times one dependent O2 load, as the probe measured it
-    (latency_probe); the kernels' registers and spills."""
+    index; kernel 7 (v8) on the first pass-1 backward of phase 11 (int32)
+    and of phase 2i (int64) against the plain torch v8 (v8_calls). Kernel
+    and plain times (CUDA events, medians) at the main path's shapes, each
+    launch's bound and its latency floor: the longest lane's steps (rounds)
+    times one dependent O2 load, as the probe measured it (latency_probe);
+    the kernels' registers and spills."""
     from mpibwa_tpu_torch.core.opts import mem_opt_init
     from mpibwa_tpu_torch.ops import fwd_cuda, sa_cuda, seeding
     from mpibwa_tpu_torch.ops.fmd import _sa_lookup16
@@ -1487,9 +1990,9 @@ def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
     opt = mem_opt_init()
     msl, mi = opt.min_seed_len, opt.max_mem_intv
     wrappers = Spy.kernel_wrappers()
-    worst = {k: 0 for k in LOOP_KERNELS}
+    worst = {k: 0 for k in LOOP_KERNELS + ("bwd_v8",)}
     res = {}
-    for name in ("fwd_automata", "sa_walk"):
+    for name in ("fwd_automata", "sa_walk", "bwd_v8"):
         for line in ptxas_lines(name):
             log(f"phase 2g -Xptxas -v {name}.cu {line}")
     lat_us, rate = latency_probe(fm)
@@ -1670,10 +2173,20 @@ def phase2g(fm, fm64, spy, launches, side, wide_out) -> dict:
               None, False)
     wide_case(fm, spy.fwd_calls.pop("14c"), side, wide_out, one, worst, msl,
               mi, floor)
-    for name in LOOP_KERNELS:
+    v8 = {}
+    for ptype, call in v8_calls.items():
+        src = "phase 11" if ptype == "int32" else "phase 2i"
+        v8[ptype] = v8_case(f"{src}'s first pass-1 backward", call, floor,
+                            ptype)
+        worst["bwd_v8"] = max(worst["bwd_v8"], v8[ptype].pop("max_abs_err"))
+    # the int64 index is kernel 7's main path (MPIBWA_BWD=auto)
+    res["bwd_v8"] = dict(v8["int64"], steps=v8["int64"].pop("rounds"),
+                         int32=v8["int32"])
+    for name in LOOP_KERNELS + ("bwd_v8",):
         r = res[name]
         r["latency_floor_ms"] = r.pop("steps") * lat_us / 1e3
-        log(f"phase 2g {name}: {launches[name]} launches in phase 4's PE "
+        run = "phase 11's" if name == "bwd_v8" else "phase 4's"
+        log(f"phase 2g {name}: {launches[name]} launches in {run} PE "
             f"run; kernel {r['ms']:.4f} ms (the wrapper's call "
             f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.2f} ms, "
             f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
@@ -2152,12 +2665,13 @@ def _die_with_parent(parent: int) -> None:
 
 def start_plain_wide(ref: str, fq: str, out: str) -> subprocess.Popen:
     """The plain forward_p3 over the wide read of phase 14c's batch alone
-    (the batch's last read, at the batch's width), on the CPU in a side
+    (the last read of fq, at the batch's width), on the CPU in a side
     process (this script with --plain-wide), so that its 62,708 host-loop
     rounds overlap the phases after 15 instead of adding to the run. A
     lane's outputs do not depend on the other lanes, so phase 2g holds the
-    kernel over the whole batch to the plain loop over the short reads (on
-    the card) followed by what this process writes to out. In process on
+    kernel over the whole batch to the plain loop over its other lanes (on
+    the card) with what this process writes to out put in at the wide
+    read's lane (wide_lane, splice_lane). In process on
     an H100 80GB HBM3 (700 W) the wide lane's rounds took 320 s (5.1 ms a
     round); the whole batch on one CPU thread did not end in 600 s."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
@@ -2317,10 +2831,11 @@ def profiled_run(tag, workdir, argv, spy, knobs, kernels, base_sam) -> dict:
 
 
 def knob_run(tag, workdir, argv, spy, knobs, kernels, base_sam, n_reads,
-             absent=()):
+             absent=(), capture=None):
     """A main-path run under knobs: each of its kernels launched, none of
-    the absent ones, its SAM equal to base_sam (phase 4's)."""
-    r = run_cli(workdir, argv, spy, "device", knobs)
+    the absent ones, its SAM equal to base_sam (phase 4's); capture: the
+    spy's tag for the run."""
+    r = run_cli(workdir, argv, spy, "device", knobs, capture)
     report_run(tag, r, n_reads)
     require_c_chain(tag, r)
     same = r["sam"] == base_sam
@@ -2348,7 +2863,8 @@ def backward_stages(r: dict, n_reads: int) -> str:
             f"{st.get('bwd_rounds', 0)}, p2_spec {st.get('p2_spec', 0)}, "
             f"p2_redo {st.get('p2_redo', 0)}, v8_redo {st.get('v8_redo', 0)}, "
             f"overflow_microbatches {r['stats']['overflow_batches']}, pass "
-            f"kernel launches {r['launches']['bwd_pass']}, peak device memory "
+            f"kernel launches {r['launches']['bwd_pass']}, v8 kernel "
+            f"launches {r['launches']['bwd_v8']}, peak device memory "
             f"{r['peak'] / 2**30:.3f} GiB")
 
 
@@ -2486,6 +3002,9 @@ def smoke(args) -> int:
         report_sizes("phase 4", pe, k)
         if launches[k] <= 0:
             raise Failed(f"the main path launched no {k} kernel")
+    if pe["launches"]["bwd_v8"]:
+        raise Failed("the default run on the int32 index launched the v8 "
+                     "kernel")
     log(f"phase 4 backward: {backward_stages(pe, n_pe)}")
     captured = list(spy.captured)
 
@@ -2540,30 +3059,35 @@ def smoke(args) -> int:
     knobs8 = {"MPIBWA_BWD": "flat", "MPIBWA_PALLAS": "1"}
     r8 = knob_run("phase 8 PE MPIBWA_BWD=flat MPIBWA_PALLAS=1",
                   os.path.join(work, "pe_occ4"), pe_argv, spy, knobs8,
-                  ["occ4_extend"], pe["sam"], n_pe, absent=["bwd_pass"])
+                  ["occ4_extend"], pe["sam"], n_pe,
+                  absent=["bwd_pass", "bwd_v8"])
     launches["occ4_extend"] = r8["launches"]["occ4_extend"]
     report_sizes("phase 8", r8, "occ4_extend")
     # phase 9: flat, contig, the default, v8 (phase 11), the default, in
     # turns after phase 8
     r9f = knob_run("phase 9 PE MPIBWA_BWD=flat", os.path.join(work, "pe_flat"),
                    pe_argv, spy, {"MPIBWA_BWD": "flat"}, ["extend"],
-                   pe["sam"], n_pe, absent=["bwd_pass"])
+                   pe["sam"], n_pe, absent=["bwd_pass", "bwd_v8"])
     # the contig engine (opt-in, no kernel of its own)
     r9c = knob_run("phase 9 PE MPIBWA_BWD=contig",
                    os.path.join(work, "pe_contig"), pe_argv, spy,
                    {"MPIBWA_BWD": "contig"}, ["extend"], pe["sam"], n_pe,
-                   absent=["bwd_pass"])
+                   absent=["bwd_pass", "bwd_v8"])
     r9d = knob_run("phase 9 PE default", os.path.join(work, "pe_default"),
-                   pe_argv, spy, {}, MAIN_KERNELS, pe["sam"], n_pe)
+                   pe_argv, spy, {}, MAIN_KERNELS, pe["sam"], n_pe,
+                   absent=["bwd_v8"])
     report_sizes("phase 9 default", r9d, "bwd_pass")
-    # phase 11: the v8 engine on the main path (no kernel of its own)
+    # phase 11: the v8 engine on the main path, each pass one launch of
+    # kernel 7
     r11 = knob_run("phase 11 PE MPIBWA_BWD=v8", os.path.join(work, "pe_v8"),
-                   pe_argv, spy, {"MPIBWA_BWD": "v8"}, ["extend"], pe["sam"],
-                   n_pe, absent=["bwd_pass"])
+                   pe_argv, spy, {"MPIBWA_BWD": "v8"}, ["extend", "bwd_v8"],
+                   pe["sam"], n_pe, absent=["bwd_pass"], capture="11")
+    launches["bwd_v8"] = r11["launches"]["bwd_v8"]
+    report_sizes("phase 11", r11, "bwd_v8")
     log(f"phase 11 v8: {backward_stages(r11, n_pe)}")
     r9d2 = knob_run("phase 9 PE default again",
                     os.path.join(work, "pe_default2"), pe_argv, spy, {},
-                    MAIN_KERNELS, pe["sam"], n_pe)
+                    MAIN_KERNELS, pe["sam"], n_pe, absent=["bwd_v8"])
     rate = {k: n_pe / r["align"] for k, r in
             (("phase 4", pe), ("flat", r9f), ("contig", r9c),
              ("default", r9d), ("v8", r11), ("default again", r9d2))}
@@ -2617,7 +3141,8 @@ def smoke(args) -> int:
     traced = {}
     for kernels, ph, d, kn in (
             (MAIN_KERNELS, "default", "pe_device_traced", {}),
-            (["occ4_extend"], "phase 8", "pe_occ4_traced", knobs8)):
+            (["occ4_extend"], "phase 8", "pe_occ4_traced", knobs8),
+            (["bwd_v8"], "phase 11", "pe_v8_traced", {"MPIBWA_BWD": "v8"})):
         got = profiled_run(f"phase 10 ({ph})", os.path.join(work, d),
                            t_argv, spy, kn, kernels, base_sam)
         base_sam = got.pop("sam")
@@ -2625,7 +3150,7 @@ def smoke(args) -> int:
     fm = spy.runtimes[-1].aligners[0].dfm  # phase 8's index, on the card
     spy.close()
     if (spy.occ4_ik is None or spy.bwd_call is None
-            or spy.rows_call is None):
+            or spy.rows_call is None or spy.v8_call is None):
         raise Failed("no occ4 batch or backward call captured from the main "
                      "path")
 
@@ -2635,17 +3160,17 @@ def smoke(args) -> int:
     if not captured:
         raise Failed("no extension problems captured from the main path")
     ext = {}
-    for i, args in enumerate(captured):
-        err = extend_err(args, PEN)
+    for i, call in enumerate(captured):
+        err = extend_err(call, PEN)
         worst = max(worst, err)
-        ms = extend_ms(args, PEN, 7)
-        B, Q, T = args[0].shape[0], args[0].shape[1], args[1].shape[1]
+        ms = extend_ms(call, PEN, 7)
+        B, Q, T = call[0].shape[0], call[0].shape[1], call[1].shape[1]
         line = (f"phase 2b captured call B={B} Q={Q} T={T}: max_abs_err="
                 f"{err}; kernel {ms:.4f} ms (median of 7 after a warm-up, "
                 f"CUDA events)")
         if i == 0:
-            plain_ms = median_ms(lambda: extend_batch(*args, *PEN), 7)
-            b_ms, b_by, cells = extend_bound(args)
+            plain_ms = median_ms(lambda: extend_batch(*call, *PEN), 7)
+            b_ms, b_by, cells = extend_bound(call)
             line += (f"; plain {plain_ms:.4f} ms; {cells} DP cells visited, "
                      f"bound {b_ms:.5f} ms by {b_by}")
             ext = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -2662,11 +3187,34 @@ def smoke(args) -> int:
         _torch_toy.load_reads(paths["r1"], limit=WIDE_READS // 2),
         _torch_toy.load_reads(paths["r2"], limit=WIDE_READS // 2))
         for s in pair])
+    # phase 2i: the int64 main path end to end, in process
+    for tag, reads in (("i1", r1l[:INPROC_PAIRS]), ("i2", r2l[:INPROC_PAIRS])):
+        paths[tag] = os.path.join(work, tag + ".fq")
+        write_reads(paths[tag], reads)
+    call64, launches64 = phase2i(work, ref, fm, fm64, paths, smi)
+    v8_calls = {"int32": spy.v8_call, "int64": call64}
     phase2f(spy.rows_call, pe["seed_times"])
-    results.update(phase2g(fm, fm64, spy, launches, side, wide_out))
+    results.update(phase2g(fm, fm64, spy, launches, side, wide_out,
+                           v8_calls))
+    del fm64, v8_calls, spy.v8_call
+    # kernel 7's numbers come from three runs: say which field is whose
+    results["bwd_v8"].update(launches_int64=launches64, fields_from={
+        "launches": "phase 11: the CLI PE run under MPIBWA_BWD=v8, int32 "
+                    "index",
+        "run_ms, run_launches, run_pairs": "phase 10: phase 11's run "
+                                           "traced, int32 index",
+        "launches_int64": f"phase 2i: DeviceAligner on {INPROC_PAIRS} pairs "
+                          f"over the int64 index (MPIBWA_BWD=auto)",
+        "ms, cold_ms, call_ms, plain_ms, bound_ms, bound_by, "
+        "latency_floor_ms": "phase 2g: phase 2i's first pass-1 backward, "
+                            "int64 index",
+        "int32": "phase 2g: phase 11's first pass-1 backward, int32 index",
+        "max_abs_err": "phase 2g: both of those passes against the plain "
+                       "torch v8"})
+    phase2h(dev, args.seed + 5, smi)
 
     log(f"total {time.time() - t_start:.1f}s")
-    # no single PyTorch call computes any of the six functions
+    # no single PyTorch call computes any of the seven functions
     log(json.dumps({"kernels": [
         dict(KERNELS[k], launches=launches[k], library_ms=None,
              run_pairs=n_tr, **traced[k], **results[k])

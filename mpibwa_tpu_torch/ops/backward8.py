@@ -46,7 +46,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mpibwa_tpu_torch.ops.pulls import pull_prefix
+from mpibwa_tpu_torch.ops.pulls import (lane_lists, note_pass, pack_rows,
+                                        pull_rows)
 
 SEG_ROUNDS = 4  # rounds a segment between compactions (the first: one more)
 MIN_CAP = 8192  # capacity at which the rounds run on to the end
@@ -216,11 +217,11 @@ def _emitted_rows(st: V8State, idt) -> torch.Tensor:
                         st.info.to(idt), st.lane.to(idt)], dim=1)
 
 
-def _compact(rows: torch.Tensor, keep: torch.Tensor, cap: int,
-             base=0) -> torch.Tensor:
-    """rows where keep, in order, written from row base of a (cap + 1, 6)
-    buffer whose last row takes whatever does not fit (dropped)."""
-    pos = torch.cumsum(keep, 0, dtype=torch.int64) - 1 + base
+def _compact(rows: torch.Tensor, keep: torch.Tensor, cap: int
+             ) -> torch.Tensor:
+    """rows where keep, in order, at the front of a (cap + 1, 6) buffer
+    whose last row takes whatever does not fit (dropped)."""
+    pos = torch.cumsum(keep, 0, dtype=torch.int64) - 1
     out = rows.new_zeros((cap + 1, rows.shape[1]))
     out[torch.where(keep, pos, cap).clamp(max=cap)] = rows
     return out
@@ -277,10 +278,7 @@ def _merge_filter(acc, acc_off, tail, n_tail, min_len: int, overflow
     idx = torch.arange(N, device=allr.device)
     valid = (idx < acc_off) | ((idx >= maxm) & (idx < maxm + n_tail))
     keep = valid & ((allr[:, 4] - allr[:, 3]) >= min_len)
-    out = _compact(allr, keep, N + 1, base=1)
-    out[0, 0] = keep.sum()
-    out[0, 1] = overflow.to(out.dtype)
-    return out
+    return pack_rows(allr, keep, overflow)
 
 
 def _acc_rows(E: int, min_len: int) -> int:
@@ -356,26 +354,6 @@ def run_backward8(fm, qrows_dev, entry_dev, n_lanes: int, x0, minv,
     if extra_ov is not None:
         overflow = overflow | extra_ov
     comb = _merge_filter(acc, acc_off, tail, n_tail, min_len, overflow)
-    N = comb.shape[0] - 2
-    est = min(N, max(int(est_rows), 0))
-    first = pull_prefix(comb, 1 + est)
-    n, ov = int(first[0, 0]), bool(first[0, 1])
-    reads += tail_reads + 1
-    if ov:
-        rows = first[:0]
-    elif n <= est:
-        rows = first[1: 1 + n]
-    else:
-        rows = pull_prefix(comb[1:], n)
-        reads += 1
-    if stats is not None:
-        stats["bwd_segments"] = stats.get("bwd_segments", 0) + reads
-    if raw:
-        return rows, ov
-    out = [[] for _ in range(n_lanes)]
-    if ov:
-        return out, np.ones(n_lanes, bool)
-    for x0_, x1_, x2_, start, end, ln in rows.tolist():
-        if 0 <= ln < n_lanes:
-            out[ln].append((x0_, x1_, x2_, (start << 32) | end))
-    return out, np.zeros(n_lanes, bool)
+    rows, ov, pulls = pull_rows(comb, est_rows)
+    note_pass(stats, reads + tail_reads + pulls)
+    return (rows, ov) if raw else lane_lists(rows, ov, n_lanes)

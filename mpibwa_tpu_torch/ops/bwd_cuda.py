@@ -36,7 +36,8 @@ import torch
 
 from mpibwa_tpu_torch.ops import _build
 from mpibwa_tpu_torch.ops.occ4_cuda import extend_blocks
-from mpibwa_tpu_torch.ops.pulls import pull_prefix
+from mpibwa_tpu_torch.ops.pulls import (lane_lists, note_pass, pack_rows,
+                                        pull_rows, rounds_on_host)
 from mpibwa_tpu_torch.ops.seeding_flat import (_seg_excl_cumsum,
                                                _seg_prev_keeper,
                                                _segment_start)
@@ -75,10 +76,11 @@ def make_lanes(qrows: torch.Tensor, lane_off: torch.Tensor,
                     minv.contiguous(), lane_e, int(max_len))
 
 
-def slot_count(max_len: int) -> int:
+def slot_count(max_len: int, slots: "tuple[int, ...]" = SLOTS) -> int:
     """The kernel instance for a launch: the fewest slots of 32 entries
-    that hold the longest lane, at most SLOTS[-1]."""
-    return next((s for s in SLOTS if 32 * s >= max_len), SLOTS[-1])
+    that hold the longest lane, at most slots[-1] (slots: a kernel's
+    register instances, this kernel's by default)."""
+    return next((s for s in slots if 32 * s >= max_len), slots[-1])
 
 
 def init_state(ik: torch.Tensor, live: torch.Tensor, x0: torch.Tensor,
@@ -227,30 +229,13 @@ def pack_emitted(state: torch.Tensor, info_end: torch.Tensor,
     start, end, lane] in flat order: lane after lane and, within a lane, in
     emission order (the slot of a lane's first live entry only moves down
     over the rounds). On the device, behind a header row [count, 0, 0, 0,
-    0, 0]: a (1 + E + 1, 6) int32 tensor, the last row a dump."""
-    E = state.shape[1]
+    0, 0]: a (1 + E + 1, 6) int32 tensor, the last row a dump (pack_rows)."""
     start = state[I] + 1
     end = info_end.to(torch.int32)
     em = (state[EMITTED] != 0) & ((end - start) >= min_len)
     cols = torch.stack([state[IK0], state[IK1], state[IK2], start, end,
                         lane_e.to(torch.int32)], dim=1)
-    pos = torch.cumsum(em, 0)  # the row after the header
-    out = torch.zeros((E + 2, 6), dtype=torch.int32, device=state.device)
-    out[torch.where(em, pos, E + 1)] = cols
-    out[0, 0] = em.sum()
-    return out
-
-
-def pull_rows(packed: torch.Tensor, est_rows: int
-              ) -> "tuple[np.ndarray, int]":
-    """(rows, host reads) of pack_emitted's output: one pull of the header
-    and the first est_rows rows, a second only when there are more."""
-    est = min(packed.shape[0] - 2, max(int(est_rows), 0))
-    first = pull_prefix(packed, 1 + est)
-    n = int(first[0, 0])
-    if n <= est:
-        return first[1: 1 + n], 1
-    return pull_prefix(packed[1:], n), 2
+    return pack_rows(cols, em)
 
 
 def entry_state(qrows_dev, entry_dev, x0_np, minv_np, lane_off_np
@@ -305,21 +290,10 @@ def run_backward_fused(fm, qrows_dev, entry_dev, n_lanes: int, x0_np,
         state = bwd_pass(fm, lanes, state, rounds)
     else:
         state = bwd_pass_kernel(fm, lanes, state, rounds)
-    rounds_host = rounds
-    if stats is not None and rounds.device.type == "cuda":
-        # lands before the read of the mems completes, in stream order
-        rounds_host = torch.empty(1, dtype=torch.int32, pin_memory=True)
-        rounds_host.copy_(rounds, non_blocking=True)
+    rounds_host = rounds_on_host(rounds, stats)
     if est_rows is None:
         est_rows = state.shape[1] if min_len <= 0 else n_lanes // 8 + 1024
-    rows, reads = pull_rows(
+    rows, ov, reads = pull_rows(
         pack_emitted(state, entry_dev[1], lanes.lane_e, min_len), est_rows)
-    if stats is not None:
-        stats["bwd_rounds"] = stats.get("bwd_rounds", 0) + int(rounds_host[0])
-        stats["bwd_segments"] = stats.get("bwd_segments", 0) + reads
-    if raw:
-        return rows, False
-    out_mems = [[] for _ in range(n_lanes)]
-    for x0, x1, x2, start, end, ln in rows.tolist():
-        out_mems[ln].append((x0, x1, x2, (start << 32) | end))
-    return out_mems, np.zeros(n_lanes, bool)
+    note_pass(stats, reads, rounds_host)
+    return (rows, ov) if raw else lane_lists(rows, ov, n_lanes)

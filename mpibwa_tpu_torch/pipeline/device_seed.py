@@ -16,8 +16,10 @@ position path, v8 on a CUDA device with the int64 path, and the exact
 an H100 against the others (PERF.md). flat forces the flat engine; pallas
 takes the pass kernel on any int32 index (its plain pass on the CPU) and
 pallas_interp the plain pass on any device; v8 is the JAX package's
-accelerator engine (ops/backward8.py, either position dtype; an overflow
-is redone on the flat engine); contig is the JAX package's opt-in contig
+accelerator engine, either position dtype: on a CUDA device each pass is
+one launch of the v8 kernel (ops/v8_cuda.py, csrc/bwd_v8.cu), on the CPU
+its plain version ops/backward8.py, whose overflow is redone on the flat
+engine; contig is the JAX package's opt-in contig
 engine (ops/seeding_flat.py, either position dtype), which auto never
 picks. In collect_flat, v8 and the pass engine hand back the rows of the
 mems, filtered and compacted on the device; flat and contig go through
@@ -41,6 +43,7 @@ from mpibwa_tpu_torch.ops import backward8 as B8
 from mpibwa_tpu_torch.ops import fwd_cuda
 from mpibwa_tpu_torch.ops import seeding
 from mpibwa_tpu_torch.ops import seeding_flat as SF
+from mpibwa_tpu_torch.ops import v8_cuda
 from mpibwa_tpu_torch.ops.pulls import pull_prefix, pull_prefix_async
 
 
@@ -280,9 +283,10 @@ class DeviceSeeder:
                 ivals_dev, infos_dev, *tables,
                 B8.cap_bucket(e, 1024) if engine == "v8" else SF._pad_cap(e))
             if engine == "v8":
-                mems, overflow = B8.run_backward8(
+                mems, overflow = v8_cuda.v8_pass_kernel(
                     self.dfm, qrows, entries, NLp, x0, minv,
-                    min_len=self.opt.min_seed_len, stats=self.times)
+                    min_len=self.opt.min_seed_len, stats=self.times,
+                    max_len=int(arr[:, 2].max()))
                 if overflow.any():  # an accumulator filled: redo exactly
                     self.times["v8_redo"] = self.times.get("v8_redo", 0) + 1
                     engine = "flat"
@@ -477,10 +481,11 @@ class DeviceSeeder:
             qrows, tables, x0, minv, e = self._lanes(qd, arr, NLp)
             entries = SF.assemble_entries(ivals_dev, infos_dev, *tables,
                                           B8.cap_bucket(e, 1024))
-            return B8.run_backward8(
+            return v8_cuda.v8_pass_kernel(
                 self.dfm, qrows, entries, NLp, x0, minv,
                 min_len=self.opt.min_seed_len, raw=True,
-                est_rows=N // 8 + 1024, stats=self.times)
+                est_rows=N // 8 + 1024, stats=self.times,
+                max_len=int(arr[:, 2].max()))
         fb = np.zeros(1 + int(arr[:, 0].max()), bool)
         mems = self._run_backward_for_calls(qd, call_list, ivals_dev,
                                             infos_dev, fb)
@@ -580,7 +585,7 @@ class DeviceSeeder:
                     ltbl_d, cap)
                 ctl2_thunk = pull_prefix_async(ctl2_d, 1 + n2)
                 t2 = self._mark("p2_fwd", t2)
-                rows2, ov2 = B8.run_backward8(
+                rows2, ov2 = v8_cuda.v8_pass_kernel(
                     self.dfm, q2d, entries2, B2, x0_d,
                     self._upload(min2.astype(np.int32)),
                     min_len=opt.min_seed_len, raw=True,

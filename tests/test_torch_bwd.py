@@ -212,7 +212,7 @@ def test_bwd_round_equals_pallas_kernel_interpret_round_by_round(fms, entry):
         assert rounds <= L + 2
     assert rounds > 5
     info = torch.from_numpy(entry["info"])
-    got, _ = BC.pull_rows(BC.pack_emitted(state, info, lanes.lane_e), E)
+    got = BC.pull_rows(BC.pack_emitted(state, info, lanes.lane_e), E)[0]
     cols, n = PB.pack_emitted(jst, jnp.asarray(entry["info"].astype(np.int32)),
                               lane_e, E)
     np.testing.assert_array_equal(got, np.asarray(cols[: int(n)]))
