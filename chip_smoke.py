@@ -97,7 +97,11 @@ Phases, one printed line (or more) each:
      its 1% longest walks (the heavy phase), (c) those walks alone (the
      latency tail) and (d) the longest walk alone; phase 4's inputs again
      on phase 2e's int64 index; kernel 7 on the first pass-1 backward of
-     phase 11 (int32) and of phase 2i (int64) against the plain torch v8;
+     phase 11 (int32) and of phase 2i (int64) and on phase 11's first
+     pass-2 backward against the plain torch v8 (rows) and its torch trace
+     (every entry's outputs), with step 0's counts of its layout (lanes by
+     entries, warp-rounds one warp a lane, packed and as the kernel ran
+     them, steps and distinct steps, live-thread shares);
      the kernels' registers and spills
      (-Xptxas -v); a dependent-load probe (csrc/sa_walk.cu) over the O2
      table: one thread, a warp on every SM, every SM full, at the card's
@@ -151,10 +155,13 @@ Usage: python3 chip_smoke.py [--pairs N] [--host-pairs N] [--genome-bp N]
                              [--seed S] [--traced-pairs N] [--long-reads N]
        python3 chip_smoke.py --fwd-turns DIR [DIR ...] [--genome-bp N]
        python3 chip_smoke.py --sa-turns DIR [DIR ...] [--genome-bp N]
+       python3 chip_smoke.py --v8-turns [DIR ...] [--genome-bp N]
 (--host-pairs sets the pairs of phases 6, 7, 12 and 13. --fwd-turns times
 kernels 4 and 5 against the fwd_automata.cu of each DIR, --sa-turns kernel
-6 against the sa_walk.cu of each DIR, with the o2.cuh beside it, in turns
-on the same inputs, and runs no other phase: see fwd_turns, sa_turns.)
+6 against the sa_walk.cu of each DIR, --v8-turns kernel 7 against the
+bwd_v8.cu of each DIR (after step 0's counts), with the o2.cuh beside
+it, in turns on the same inputs, and runs no other phase: see fwd_turns,
+sa_turns, v8_turns.)
 Exits non-zero without a usable CUDA device, on any mismatch and on any
 error.
 """
@@ -298,6 +305,21 @@ def extend_err(args, pen) -> int:
     got = extend_batch_kernel(*args, *pen)
     torch.cuda.synchronize()
     return max_err(got, extend_batch(*args, *pen))
+
+
+def host_ms(fn, reps: int) -> float:
+    """The host's wall time of fn, which queues work on the card and need
+    not wait for it: the median of reps calls, each after the card is
+    idle, after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
 
 
 def median_ms(fn, reps: int) -> float:
@@ -463,7 +485,7 @@ class Spy:
         self.fwd_calls = {}  # capture tag -> forward_p3 arguments
         self.p2_call = None  # the first pass-2 forward_pass arguments
         self.sa_ks = None  # the first SA walk's indices
-        self.v8_call = None  # the first v8 pass of a run tagged "11"
+        self.v8_calls = []  # the first two v8 passes of a run tagged "11"
         self.capture = None  # the tag of the run being captured
         self.plain = False
         self.time_sa = False
@@ -554,9 +576,9 @@ class Spy:
 
         def v8_pass(fm, qrows, entry, n_lanes, x0, minv, **k):
             with spy._lock:
-                if spy.capture == "11" and spy.v8_call is None:
-                    spy.v8_call = v8_capture(fm, qrows, entry, n_lanes, x0,
-                                             minv, k)
+                if spy.capture == "11" and len(spy.v8_calls) < 2:
+                    spy.v8_calls.append(v8_capture(fm, qrows, entry,
+                                                   n_lanes, x0, minv, k))
             return sized("bwd_v8", lambda *a: spy._real_v8(*a, **k),
                          entry[0].shape[0], fm, qrows, entry, n_lanes, x0,
                          minv)
@@ -1268,13 +1290,19 @@ def rows_err(got: np.ndarray, want: np.ndarray) -> int:
 
 
 def v8_trace(fm, inp) -> dict:
-    """What a v8 pass needs, for a bound: the rounds of its longest lane,
-    its steps (a live entry's round with a query base, two ranks each),
-    the distinct O2 sectors those ranks read and the query bytes read (a
-    lane's live entries share their i, so one byte a lane a round while
-    the lane has a live entry inside its row), from kernel 7's rule run in
-    torch over the flat state on the card (inp: v8_cuda.V8Inputs; one host
-    read a round, a trace and not a timed run)."""
+    """What a v8 pass needs, for a bound and for kernel 7's layout: the
+    rounds of its longest lane and each lane's rounds (a round of a lane
+    that starts with a live entry), its steps (a live entry's round with a
+    query base, two ranks each), the steps whose (lane, k0, s) is
+    distinct in their round, the sector loads of the steps (one, or two
+    where the two positions lie in different sub-blocks), the distinct O2
+    sectors those ranks read, the query bytes read (a lane's live entries
+    share their i, so one byte a lane a round while the lane has a live
+    entry inside its row), and every entry's final k0, s, i and flags (the
+    kernel's outputs of the entries in lanes), from the v8 rule run in
+    torch over the flat state on the card, lane by lane in lockstep (inp:
+    v8_cuda.V8Inputs; one host read a round, a trace and not a timed
+    run)."""
     from mpibwa_tpu_torch.ops.backward8 import _occ_c2
 
     L = inp.q.shape[1]
@@ -1287,10 +1315,17 @@ def v8_trace(fm, inp) -> dict:
     k0, s = inp.ik[:E, 0].clone(), inp.ik[:E, 2].to(torch.int32)
     i = inp.x0[lane] - 1
     minv, live = inp.minv[lane], inp.live[:E].clone()
+    bound = torch.zeros(E, dtype=torch.bool, device=dev)
+    bound[off[:-1][off[:-1] < off[1:]]] = True
+    emitted = torch.zeros_like(bound)
     l2 = fm.L2[:4]
-    rounds = steps = qbytes = 0
+    lane_rounds = torch.zeros(len(off) - 1, dtype=torch.int64, device=dev)
+    rounds = steps = qbytes = distinct = loads = 0
     blocks = []
     while bool(live.any()):
+        started = torch.zeros_like(lane_rounds, dtype=torch.bool)
+        started[lane[live]] = True
+        lane_rounds += started
         valid = (i >= 0) & (i < L)
         qbytes += int(torch.unique(lane[live & valid]).numel())
         qi = torch.where(valid, qflat[lane * L + i.clamp(0, L - 1).long()]
@@ -1301,12 +1336,18 @@ def v8_trace(fm, inp) -> dict:
         t = _occ_c2(fm.o2_tables(), fm.primary, torch.cat([kq, kq + s]),
                     torch.cat([c, c]))
         tk, s2 = t[:E], t[E:] - t[:E]
+        sb = []
         for pos in (kq[need], (kq + s)[need]):
             p = pos.clamp(min=0)
-            blocks.append(torch.unique((p - (p >= fm.primary).to(p.dtype))
-                                       >> 4))
+            sb.append((p - (p >= fm.primary).to(p.dtype)) >> 4)
+            blocks.append(torch.unique(sb[-1]))
         steps += int(need.sum())
+        loads += int(need.sum()) + int((sb[0] != sb[1]).sum())
+        distinct += torch.unique(torch.stack(
+            [lane[need], k0[need].long(), s[need].long()]), dim=1).shape[1]
         keeper = need & (s2 >= minv)
+        emitted |= live & (bound | ~torch.cat([live.new_zeros(1),
+                                               live[:-1]])) & ~keeper
         k0 = torch.where(keeper, l2[c.long()] + 1 + tk, k0)
         s = torch.where(keeper, s2, s)
         i = torch.where(keeper, i - 1, i)
@@ -1315,17 +1356,101 @@ def v8_trace(fm, inp) -> dict:
     sectors = (int(torch.unique(torch.cat(blocks)).numel()) if blocks
                else 0)
     return {"rounds": rounds, "steps": steps, "sectors": sectors,
-            "qbytes": qbytes}
+            "qbytes": qbytes, "distinct": distinct, "loads": loads,
+            "lane_rounds": lane_rounds,
+            "final": {"k0": k0, "s": s, "i": i,
+                      "flags": emitted.to(torch.uint8) * 2}}
 
 
-def v8_case(tag, call, floor, ptype) -> dict:
+LENGTH_BINS = (0, 1, 2, 4, 8, 16, 32, 64, 128, 192)  # bin upper edges
+# step 0's packed layout without compaction: the threads of a lane's run
+# by its entries (clamped to 33), the next power of two up to a warp, a
+# whole warp past 32 entries; runs sorted by size and x0, both down, so
+# every run lies in one warp
+RUN = (0, 1, 2, 4, 4) + (8,) * 4 + (16,) * 8 + (32,) * 17
+
+
+def v8_counts(tag: str, inp, tr: dict, rate: float) -> dict:
+    """Step 0 of kernel 7's layout on one pass (inp: v8_cuda.V8Inputs, tr:
+    its v8_trace): the lanes by entry count; the warp-rounds of one warp
+    a lane (each lane's rounds, summed), of the packed layout (RUN's
+    runs, no compaction: a warp runs until its last lane ends) and of its
+    lanes past 32 entries (a round of such a lane walks its chunks one
+    after another: its rounds times its chunks); the steps, the distinct
+    steps, and the live-thread share (steps over 32 threads a warp-round);
+    whether distinct steps / 32 fall under half the packed warp-rounds
+    (the test for compacting dead and duplicate entries); the random-load
+    floor (the steps' sector loads at the probe's full-card rate, rate a
+    second). Logs them; returns the numbers."""
+    off = inp.lane_off.long()
+    n = off[1:] - off[:-1]
+    lr = tr["lane_rounds"]
+    size = torch.tensor(RUN, device=n.device)[n.clamp(max=len(RUN) - 1)]
+    o = torch.sort(size * 2**32 + inp.x0, descending=True).indices
+    size = size[o]
+    ends = torch.cumsum(size, 0)
+    ns, lrs = n[o], lr[o]
+    short = (size > 0) & (ns <= 32)
+    packed = torch.zeros(len(n), dtype=torch.int64, device=n.device)
+    packed.scatter_reduce_(0, ((ends - size) // 32)[short], lrs[short],
+                           "amax")
+    lng = ns > 32
+    c = {"lanes": int((n > 0).sum()), "lanes_launched": len(n),
+         "lanes_over_32": int(lng.sum()),
+         "entries_over_32": int(ns[lng].sum()),
+         "rounds_over_32": int(lrs[lng].max()) if bool(lng.any()) else 0,
+         "longest_lane": int(n.max()),
+         "warps_packed": (int(ends[-1]) + 31) // 32,
+         "warp_rounds_one_a_lane": int(lr.sum()),
+         "warp_rounds_packed": int(packed.sum()),
+         "chunk_rounds_over_32": int((lrs * ((ns + 31) // 32))[lng].sum()),
+         "steps": tr["steps"], "distinct_steps": tr["distinct"],
+         "sector_loads": tr["loads"]}
+    hist, lo = {}, -1
+    for hi in LENGTH_BINS:
+        hist[f"{lo + 1}-{hi}" if hi > lo + 1 else str(hi)] = int(
+            ((n > lo) & (n <= hi)).sum())
+        lo = hi
+    hist[f">{lo}"] = int((n > lo).sum())
+    c["histogram"] = hist
+    wr = c["warp_rounds_packed"] + c["chunk_rounds_over_32"]
+    c["live_share_one_a_lane"] = tr["steps"] / max(
+        32 * c["warp_rounds_one_a_lane"], 1)
+    c["live_share_packed"] = tr["steps"] / max(32 * wr, 1)
+    c["compact"] = c["distinct_steps"] / 32 < wr / 2
+    c["random_load_floor_ms"] = tr["loads"] / rate * 1e3
+    log(f"step 0 of kernel 7 on {tag}: {json.dumps(c)} (compaction "
+        f"{'called for' if c['compact'] else 'not called for'}: distinct "
+        f"steps / 32 = {c['distinct_steps'] / 32:.1f} against the packed "
+        f"layout's {wr} warp-rounds; random-load floor "
+        f"{c['random_load_floor_ms']:.5f} ms: {tr['loads']} sector loads at "
+        f"{rate / 1e9:.3f} G a second)")
+    return c
+
+
+def warps_per_sm(regs: int, block: int = 128) -> int:
+    """Resident warps an SM of the H100 holds for a kernel of `regs`
+    registers a thread in blocks of `block` threads, by registers alone:
+    65,536 registers, allocated a warp at a time in units of 256, at most
+    64 warps and 32 blocks."""
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min(65536 // (per_warp * (block // 32)), 32)
+    return min(blocks * block // 32, 64)
+
+
+def v8_case(tag, call, floor, ptype, rate) -> dict:
     """Kernel 7 on a captured main-path pass against the plain torch v8 on
     the card (rows in lane order, every column equal), one launch of the
-    wrapper; the kernel alone timed (20 launches back to back into the
-    same outputs: its inputs are read-only and every output slot is
-    written, so each launch starts from the same state), with the L2
-    flushed, the wrapper's call (its pull included) and the plain version
-    (CUDA events, medians); its bound and latency floor."""
+    wrapper, and entry by entry against v8_trace's final state (k0, s, i
+    and flags of every entry in a lane); step 0's counts (v8_counts) with
+    the kernel's own warp-rounds (ctl[3] of one launch) and live-thread
+    share beside them; the kernel alone
+    timed (20 launches back to back into the same outputs: its inputs are
+    read-only, every output slot is written and the lane counters are
+    0 again after a launch, so each launch starts from the same state),
+    with the L2 flushed, the wrapper's call (its pull included) and the
+    plain version (CUDA events, medians); its bound, latency floor and
+    random-load floor (rate: the probe's loads a second)."""
     from mpibwa_tpu_torch.ops import backward8 as B8
     from mpibwa_tpu_torch.ops import v8_cuda as V
 
@@ -1344,13 +1469,21 @@ def v8_case(tag, call, floor, ptype) -> dict:
     if ov or pov:
         raise Failed(f"phase 2g: bwd_v8 {tag} overflowed (kernel {ov}, "
                      f"plain {pov})")
-    inp = V.v8_inputs(fm, qrows, entry, NL, x0, minv, max_len)
+    inp = V.v8_inputs(fm, qrows, entry, NL, x0, minv)
     out = V.v8_outputs(fm, E, qrows.device)
 
     def go():
         if V.v8_launch(fm, inp, out) != 0:
             raise Failed("a timing launch of bwd_v8 failed")
     go.keep = (inp.q,)
+    go()
+    torch.cuda.synchronize()
+    ctl = out.ctl.tolist()
+    tr = v8_trace(fm, inp)
+    used = int(inp.lane_off[-1])  # the entries in lanes (v8_inputs)
+    err_entries = max(max_err(getattr(out, k)[:used], v)
+                      for k, v in tr["final"].items())
+    counts = v8_counts(tag, inp, tr, rate)
     ms, cold = launch_ms(go, 20), cold_ms(go)
     call_ms = median_ms(lambda: V.v8_pass_kernel(
         fm, qrows, entry, NL, x0, minv, min_len=min_len, raw=True,
@@ -1358,43 +1491,48 @@ def v8_case(tag, call, floor, ptype) -> dict:
     plain_ms = median_ms(lambda: B8.run_backward8(
         fm, qrows, entry, NL, x0, minv, min_len=min_len, raw=True,
         est_rows=est), 3)
-    tr = v8_trace(fm, inp)
-    rounds = int(out.rounds[0])
-    if rounds != tr["rounds"]:
+    rounds = ctl[0]
+    if rounds != tr["rounds"] or ctl[1] or ctl[2]:
         raise Failed(f"phase 2g: bwd_v8 ran {rounds} rounds, its trace "
-                     f"{tr['rounds']}")
+                     f"{tr['rounds']}; its lane counters {ctl[1:3]}")
     pos = entry[0].element_size()
     L = qrows.shape[1]
-    used = int(inp.lane_off[-1])  # the entries in lanes (v8_inputs)
     n_live = int(entry[3].sum())  # all in lanes
     # what the pass must move, once each: every entry in a lane its live
     # flag and its outputs (k0, s, i, flags), a live one also the x[0] and
-    # x[2] it starts from (x[1] is never read); every lane its offset, x0
-    # and min_intv; the query bytes its live entries read (v8_trace); each
-    # O2 sector the ranks read
-    nbytes = (used * (1 + pos + 9) + n_live * 2 * pos + NL * 12
+    # x[2] it starts from (x[1] is never read); every lane that holds an
+    # entry its offset, x0 and min_intv; the query bytes its live entries
+    # read (v8_trace); each O2 sector the ranks read
+    nbytes = (used * (1 + pos + 9) + n_live * 2 * pos + counts["lanes"] * 12
               + tr["qbytes"] + SECTOR * tr["sectors"])
     ops = OPS_PER_V8_STEP * tr["steps"]
     b_ms, b_by = bound(nbytes, ops)
-    lanes = int((inp.lane_off[1:] > inp.lane_off[:-1]).sum())
+    live_share = tr["steps"] / max(32 * ctl[3], 1)
     log(f"phase 2g bwd_v8 {tag} (E={E}, {used} in lanes, {n_live} live "
-        f"entries in {lanes} lanes of {NL}, L={L}, {ptype}, {inp.slots} "
-        f"slots, min_len "
-        f"{min_len}): max_abs_err={err} over the {len(got)} rows against the "
-        f"plain v8 in lane order; {rounds} rounds (the longest lane), "
-        f"{tr['steps']} steps, {tr['sectors']} distinct O2 sectors, "
-        f"{tr['qbytes']} query bytes read; kernel "
+        f"entries in {counts['lanes']} lanes of {NL}, L={L}, {ptype}, "
+        f"min_len {min_len}): max_abs_err={err} over the {len(got)} rows "
+        f"against the plain v8 in lane order, {err_entries} over the "
+        f"{used} entries' outputs against the trace; {rounds} rounds (the "
+        f"longest lane), {tr['steps']} steps, {tr['sectors']} distinct O2 "
+        f"sectors, {tr['qbytes']} query bytes read; the kernel's warps ran "
+        f"{ctl[3]} warp-rounds (one warp a lane: "
+        f"{counts['warp_rounds_one_a_lane']}), live-thread share "
+        f"{live_share:.4f} (one warp a lane: "
+        f"{counts['live_share_one_a_lane']:.4f}); kernel "
         f"{ms:.4f} ms (20 launches back to back, median of 3), {cold:.4f} ms "
         f"with the L2 flushed (one launch, median of 11), the wrapper's "
         f"call with the rows' compaction and pull (est_rows {est}) "
         f"{call_ms:.4f} ms (median of 5), plain {plain_ms:.2f} ms (median "
         f"of 3), CUDA events; bound "
         f"{b_ms:.5f} ms by {b_by} ({nbytes} B, {ops} operations), "
-        f"{b_ms / ms:.4f} of the kernel's time; {floor(ms, rounds)}; "
+        f"{b_ms / ms:.4f} of the kernel's time; "
+        f"{floor(ms, rounds, tr['loads'])}; "
         f"{ms * 1e3 / max(rounds, 1):.3f} us a round")
     return {"ms": ms, "cold_ms": cold, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "rounds": rounds, "max_abs_err": err}
+            "rounds": rounds, "max_abs_err": max(err, err_entries),
+            "warp_rounds": ctl[3], "live_thread_share": live_share,
+            "random_load_floor_ms": counts["random_load_floor_ms"]}
 
 
 BIG_SEQ_LEN = 2**31 + 2**24  # phase 2h: positions of the rank table
@@ -1955,10 +2093,14 @@ def ptxas_lines(name: str) -> "list[str]":
         regs = re.search(r"Used (\d+) registers", body)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", body)
-        out.append(f"{kernel.group(0) if kernel else fn} {ptype}: "
-                   f"{regs.group(1) if regs else '?'} registers, "
-                   f"{spill.group(1) if spill else '?'} B spill stores, "
-                   f"{spill.group(2) if spill else '?'} B spill loads")
+        line = (f"{kernel.group(0) if kernel else fn} {ptype}: "
+                f"{regs.group(1) if regs else '?'} registers, "
+                f"{spill.group(1) if spill else '?'} B spill stores, "
+                f"{spill.group(2) if spill else '?'} B spill loads")
+        if kernel and kernel.group(1) == "bwd_v8" and regs:
+            line += (f", {warps_per_sm(int(regs.group(1)))} resident warps "
+                     f"an SM by registers (blocks of 128 threads)")
+        out.append(line)
     return out
 
 
@@ -2174,14 +2316,15 @@ def phase2g(fm, fm64, spy, launches, side, wide_out, v8_calls) -> dict:
     wide_case(fm, spy.fwd_calls.pop("14c"), side, wide_out, one, worst, msl,
               mi, floor)
     v8 = {}
-    for ptype, call in v8_calls.items():
-        src = "phase 11" if ptype == "int32" else "phase 2i"
-        v8[ptype] = v8_case(f"{src}'s first pass-1 backward", call, floor,
-                            ptype)
-        worst["bwd_v8"] = max(worst["bwd_v8"], v8[ptype].pop("max_abs_err"))
+    for key, call in v8_calls.items():
+        what = {"int32": "phase 11's first pass-1 backward",
+                "int64": "phase 2i's first pass-1 backward",
+                "int32 pass 2": "phase 11's first pass-2 backward"}[key]
+        v8[key] = v8_case(what, call, floor, key[:5], rate)
+        worst["bwd_v8"] = max(worst["bwd_v8"], v8[key].pop("max_abs_err"))
     # the int64 index is kernel 7's main path (MPIBWA_BWD=auto)
     res["bwd_v8"] = dict(v8["int64"], steps=v8["int64"].pop("rounds"),
-                         int32=v8["int32"])
+                         int32=v8["int32"], int32_pass2=v8["int32 pass 2"])
     for name in LOOP_KERNELS + ("bwd_v8",):
         r = res[name]
         r["latency_floor_ms"] = r.pop("steps") * lat_us / 1e3
@@ -2361,11 +2504,13 @@ def fwd_turns(args) -> int:
     return 0
 
 
-def turn_inputs(args) -> tuple:
+def turn_inputs(args, knobs: "dict | None" = None,
+                capture: str = "4") -> tuple:
     """The inputs of the turn modes: the card's name and power limit, the
-    genome, then a PE run through the CLI on TURN_PAIRS pairs that
-    captures its first microbatch (Spy capture "4"). Returns (chromosome,
-    int32 index, int64 index of the same genome, the spy)."""
+    genome, then a PE run through the CLI on TURN_PAIRS pairs under knobs
+    that captures its first microbatch (Spy capture "4": the forward and
+    SA inputs; "11": the first two v8 passes). Returns (chromosome, int32
+    index, int64 index of the same genome, the spy)."""
     import _torch_toy
     from mpibwa_tpu_torch.index.format import load_index
     from mpibwa_tpu_torch.ops.fmd import DeviceFMIndex
@@ -2385,7 +2530,7 @@ def turn_inputs(args) -> tuple:
         write_reads(path, reads)
     spy = Spy()
     run_cli(os.path.join(work, "pe"), ["-t", "1", "-o", "out", ref] + fq,
-            spy, "device", capture="4")
+            spy, "device", knobs, capture)
     fm = spy.runtimes[-1].aligners[0].dfm
     spy.close()
     fm64 = DeviceFMIndex(load_index(ref), fm.o2_tables().device,
@@ -2420,6 +2565,158 @@ def sa_turns(args) -> int:
                        f"{idx.idt}, {sst['rounds']} rounds, {sst['steps']} "
                        f"steps)", libs, "sa_walk", idx, (sub,), 20,
                        sst["rounds"], want, "round", cold=True)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+# -- --v8-turns: kernel 7 against other builds, in turns ----------------------
+
+# the C entry point of the slotted kernel 7 (one warp a lane, S slots of
+# 32 entries in registers), before the packed layout: its arguments after
+# DeviceFMIndex.o2_args(), and its register instances
+SLOTTED_V8_ARGS = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 6)
+SLOTTED_V8_SLOTS = (4, 8)
+
+
+def v8_launcher(lib, src: str, max_len):
+    """A launch function (fm, inputs, outputs) of the bwd_v8 library lib
+    built from src: this checkout's C entry point (v8_cuda.v8_launch), or
+    the slotted kernel's where src's signature takes a slot count (its
+    instance picked from the seeder's max_len, as its wrapper did)."""
+    from mpibwa_tpu_torch.ops import v8_cuda as V
+    from mpibwa_tpu_torch.ops.bwd_cuda import slot_count
+    from mpibwa_tpu_torch.ops.seeding import F_CAP
+
+    slots = slot_count(F_CAP if max_len is None else max_len,
+                       SLOTTED_V8_SLOTS)
+    fn = getattr(lib, "mpibwa_bwd_v8")
+    with open(src) as fh:
+        slotted = re.search(r"int E, int slots", fh.read()) is not None
+    fn.argtypes = (V.ENTRY[2] if not slotted
+                   else V.ENTRY[2][:6] + SLOTTED_V8_ARGS)
+    fn.restype = ctypes.c_int
+
+    def launch(fm, inp, out):
+        if not slotted:
+            rc = V.v8_launch(fm, inp, out, fn)
+        else:
+            from mpibwa_tpu_torch.ops import _build
+
+            NL, L = inp.q.shape
+            rc = _build.launch_on(
+                inp.q.device, fn, *fm.o2_args(), inp.q.data_ptr(), NL, L,
+                inp.lane_off.data_ptr(), inp.x0.data_ptr(),
+                inp.minv.data_ptr(), inp.ik.data_ptr(), inp.live.data_ptr(),
+                inp.ik.shape[0], slots,
+                out.k0.data_ptr(), out.s.data_ptr(), out.i.data_ptr(),
+                out.flags.data_ptr(), out.ctl.data_ptr())
+        if rc != 0:
+            raise Failed(f"turns: a launch of {src} failed (cudaError {rc})")
+    return launch
+
+
+def retyped(call, idx) -> tuple:
+    """A captured v8 pass (v8_capture) on index idx: its intervals in
+    idx's position type."""
+    fm, qrows, (ik, info, lane, live), *rest = call
+    return (idx, qrows, (ik.to(idx.idt), info, lane, live), *rest)
+
+
+def v8_turn(tag: str, call, libs: dict, srcs: dict, rate: float) -> None:
+    """One pass of v8_turns (call: v8_capture's tuple): step 0's counts,
+    every build held to the plain v8 and to v8_trace, then timed in turns:
+    the kernel alone, the wrapper's route around it (v8_rows: the inputs,
+    the launch, the rows' compaction and pull), and the host's wall in
+    the inputs and in the launch call."""
+    from mpibwa_tpu_torch.ops import backward8 as B8
+    from mpibwa_tpu_torch.ops import v8_cuda as V
+
+    idx, qrows, entry, NL, x0, minv, min_len, max_len, est = call
+    inp = V.v8_inputs(idx, qrows, entry, NL, x0, minv)
+    launchers = {k: v8_launcher(lib, srcs[k], max_len)
+                 for k, lib in libs.items()}
+    tr = v8_trace(idx, inp)
+    what = (f"the first {tag} backward of a v8 PE run (E="
+            f"{entry[0].shape[0]}, {int(entry[3].sum())} live "
+            f"entries, NL={NL}, L={qrows.shape[1]}, {idx.idt}, "
+            f"{tr['rounds']} rounds)")
+    v8_counts(what, inp, tr, rate)
+    want, _ = B8.run_backward8(idx, qrows, entry, NL, x0, minv,
+                               min_len=min_len, raw=True,
+                               est_rows=est)
+    want = V.lane_order(want)
+    gos, wr = {}, {}
+    used = int(inp.lane_off[-1])
+    for k, launch in launchers.items():
+        got, _ = V.v8_rows(idx, qrows, entry, NL, x0, minv, min_len,
+                           True, est, None, None, launch)
+        out = V.v8_outputs(idx, entry[0].shape[0], qrows.device)
+        gos[k] = functools.partial(launch, idx, inp, out)
+        gos[k].keep = (inp.q,)
+        gos[k]()
+        torch.cuda.synchronize()
+        err = max([rows_err(got, want)] + [
+            max_err(getattr(out, f)[:used], v)
+            for f, v in tr["final"].items()])
+        if err:
+            raise Failed(f"turns {what}: {k} differs ({err})")
+        wr[k] = int(out.ctl[3])
+    order = list(gos)
+    warm = {k: [] for k in order}
+    cold = {k: [] for k in order}
+    route = {k: [] for k in order}
+    host = {k: [] for k in order}
+    for k in order + order[::-1]:
+        warm[k].append(launch_ms(gos[k], 20))
+        cold[k].append(cold_ms(gos[k]))
+        route[k].append(median_ms(functools.partial(
+            V.v8_rows, idx, qrows, entry, NL, x0, minv, min_len, True, est,
+            None, None, launchers[k]), 21))
+        host[k].append((host_ms(functools.partial(
+            V.v8_inputs, idx, qrows, entry, NL, x0, minv), 21),
+            host_ms(gos[k], 21)))
+    log(f"turns bwd_v8 {what}: every build max_abs_err=0 against "
+        f"the plain v8 ({len(want)} rows) and the trace ({used} "
+        f"entries' outputs); warp-rounds (the kernel's count) "
+        + ", ".join(f"{k} {v}" for k, v in wr.items() if v)
+        + f"; in turns, kernel alone "
+        f"(CUDA events), ms 20 launches back to back (median of 3) "
+        f"| one launch with the L2 flushed (median of 11) | the wrapper's "
+        f"route, v8_rows (median of 21) | the host's wall in its inputs "
+        f"(v8_inputs) and in the launch call (median of 21): "
+        + "; ".join(f"{k} {' / '.join(f'{t:.4f}' for t in warm[k])}"
+                    f" | {' / '.join(f'{t:.4f}' for t in cold[k])}"
+                    f" | {' / '.join(f'{t:.4f}' for t in route[k])}"
+                    f" | {' / '.join(f'{a:.4f}, {b:.4f}' for a, b in host[k])}"
+                    for k in order))
+
+
+def v8_turns(args) -> int:
+    """--v8-turns [DIR ...]: kernel 7 of this checkout against the builds
+    of other bwd_v8.cu sources (an earlier design: the slotted kernel
+    takes its own C entry point, v8_launcher), on one card: the first
+    pass-1 and pass-2 backward of a PE run under MPIBWA_BWD=v8 on
+    TURN_PAIRS pairs (one microbatch, the first of phase 11's and of phase
+    2i's runs), at both position types, after phase 2g's probe. On each:
+    step 0's counts (v8_counts), then every build held to the plain torch
+    v8 (rows in lane order, every column) and to v8_trace entry by entry,
+    then all timed in turns A B .. B A, 20 launches back to back and one
+    with the L2 flushed. With no DIR this checkout's build alone."""
+    libs = build_turn_libs(args.v8_turns, "bwd_v8")
+    srcs = {d: os.path.join(d, "bwd_v8.cu") for d in args.v8_turns}
+    srcs["this"] = os.path.join(REPO, "mpibwa_tpu_torch", "csrc",
+                                "bwd_v8.cu")
+    _, fm, fm64, spy = turn_inputs(args, {"MPIBWA_BWD": "v8"}, "11")
+    if len(spy.v8_calls) < 2:
+        raise Failed("turns: the run made fewer than two v8 passes")
+    _, rate = latency_probe(fm)
+    for tag, call in zip(("pass 1", "pass 2"), spy.v8_calls):
+        for idx in (fm, fm64):
+            v8_turn(tag, retyped(call, idx), libs, srcs, rate)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2921,6 +3218,10 @@ def main() -> int:
     ap.add_argument("--sa-turns", nargs="+", metavar="DIR",
                     help="time kernel 6 against the sa_walk.cu of each "
                          "DIR, in turns (sa_turns), and stop")
+    ap.add_argument("--v8-turns", nargs="*", metavar="DIR",
+                    help="step 0's counts of kernel 7 and its time against "
+                         "the bwd_v8.cu of each DIR, in turns (v8_turns), "
+                         "and stop")
     ap.add_argument("--plain-wide", nargs=4,
                     metavar=("REF", "FQ", "OUT", "PARENT_PID"),
                     help="the side process of phase 2g (plain_wide)")
@@ -2933,10 +3234,11 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     try:
-        if args.fwd_turns or args.sa_turns:
+        if args.fwd_turns or args.sa_turns or args.v8_turns is not None:
             sys.path.insert(0, REPO)
             sys.path.insert(0, os.path.join(REPO, "tests"))
-            return fwd_turns(args) if args.fwd_turns else sa_turns(args)
+            return (fwd_turns(args) if args.fwd_turns else sa_turns(args)
+                    if args.sa_turns else v8_turns(args))
         return smoke(args)
     finally:
         for proc in SIDE:  # stop every side process, whatever happened
@@ -3150,7 +3452,7 @@ def smoke(args) -> int:
     fm = spy.runtimes[-1].aligners[0].dfm  # phase 8's index, on the card
     spy.close()
     if (spy.occ4_ik is None or spy.bwd_call is None
-            or spy.rows_call is None or spy.v8_call is None):
+            or spy.rows_call is None or len(spy.v8_calls) < 2):
         raise Failed("no occ4 batch or backward call captured from the main "
                      "path")
 
@@ -3192,11 +3494,13 @@ def smoke(args) -> int:
         paths[tag] = os.path.join(work, tag + ".fq")
         write_reads(paths[tag], reads)
     call64, launches64 = phase2i(work, ref, fm, fm64, paths, smi)
-    v8_calls = {"int32": spy.v8_call, "int64": call64}
+    v8_calls = {"int32": spy.v8_calls[0], "int64": call64,
+                "int32 pass 2": spy.v8_calls[1]}
     phase2f(spy.rows_call, pe["seed_times"])
     results.update(phase2g(fm, fm64, spy, launches, side, wide_out,
                            v8_calls))
-    del fm64, v8_calls, spy.v8_call
+    del fm64, v8_calls
+    spy.v8_calls.clear()
     # kernel 7's numbers come from three runs: say which field is whose
     results["bwd_v8"].update(launches_int64=launches64, fields_from={
         "launches": "phase 11: the CLI PE run under MPIBWA_BWD=v8, int32 "
@@ -3209,8 +3513,14 @@ def smoke(args) -> int:
         "latency_floor_ms": "phase 2g: phase 2i's first pass-1 backward, "
                             "int64 index",
         "int32": "phase 2g: phase 11's first pass-1 backward, int32 index",
-        "max_abs_err": "phase 2g: both of those passes against the plain "
-                       "torch v8"})
+        "int32_pass2": "phase 2g: phase 11's first pass-2 backward, int32 "
+                       "index",
+        "warp_rounds, live_thread_share, random_load_floor_ms": "phase 2g: "
+            "the kernel's warp-rounds (its ctl[3]), the trace's steps over "
+            "32 threads a warp-round, the steps' sector loads at the "
+            "probe's full-card rate",
+        "max_abs_err": "phase 2g: those three passes against the plain "
+                       "torch v8 and the trace"})
     phase2h(dev, args.seed + 5, smi)
 
     log(f"total {time.time() - t_start:.1f}s")

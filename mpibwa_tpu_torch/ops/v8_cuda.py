@@ -3,15 +3,16 @@ csrc/bwd_v8.cu.
 
 The kernel replaces the device loop of the JAX package's v8 engine
 (mpibwa_tpu/ops/backward8.py ``_round8`` and the segments, compactions and
-tail of ``run_backward8``, an XLA loop, not a Pallas kernel): one warp
-runs one lane's rounds to its end, at either position dtype, ranking
-through the O2 table (see the note at the top of the source for its bound
-and design). ``DeviceSeeder`` reaches it under MPIBWA_BWD=v8, and under
+tail of ``run_backward8``, an XLA loop, not a Pallas kernel): persistent
+warps take the pass's lanes in index order, one entry a thread, several
+lanes to a warp, at either position dtype, ranking through the O2 table
+(see the note at the top of the source for its bound and design).
+``DeviceSeeder`` reaches it under MPIBWA_BWD=v8, and under
 MPIBWA_BWD=auto on a CUDA int64 index, at all three v8 call sites.
 
 ``v8_pass_kernel`` takes the signature of its plain version, the port's
-torch v8 ``ops.backward8.run_backward8`` (plus ``max_len``, a bound on the
-entries of a lane that picks the kernel's register instance), and returns
+torch v8 ``ops.backward8.run_backward8`` (plus ``max_len``, which the
+seeder's call sites pass and the kernel does not read), and returns
 the same results: per-lane mem lists, or with raw=True the (n, 6) rows
 [x0, x1, x2, start, end, lane] in the index dtype. Rows are chronological
 within a lane, as the plain version's, and come lane after lane, where the
@@ -34,19 +35,10 @@ import torch
 
 from mpibwa_tpu_torch.ops import _build
 from mpibwa_tpu_torch.ops import backward8 as B8
-from mpibwa_tpu_torch.ops.bwd_cuda import slot_count
 from mpibwa_tpu_torch.ops.pulls import (lane_lists, note_pass, pack_rows,
                                         pull_rows, rounds_on_host)
-from mpibwa_tpu_torch.ops.seeding import F_CAP
 
 LIVE, EMITTED = 1, 2  # bits of the kernel's per-entry flags
-# the kernel's register instances: entries a lane holds in registers, in
-# slots of 32. The seeder's passes take 4 (pass 1 of 101-bp reads, whose
-# lanes hold at most 128 entries) and 8 (pass 2, bounded only by F_CAP =
-# 192). A longer lane, which no pass of the seeder builds, is walked in
-# chunks through the outputs: kept so that the kernel is exact on any
-# lane the plain version takes.
-SLOTS = (4, 8)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,7 +48,7 @@ _count_lock = threading.Lock()  # seeding runs on a helper thread
 # leading six are DeviceFMIndex.o2_args()
 ENTRY = ("bwd_v8", "mpibwa_bwd_v8",
          [_I, _P, _L, _P, _L, _L]
-         + [_P, _I, _L, _P, _P, _P, _P, _P, _I, _I] + [_P] * 6)
+         + [_P, _I, _L] + [_P] * 5 + [_I] + [_P] * 6)
 
 
 class V8Inputs(NamedTuple):
@@ -67,7 +59,6 @@ class V8Inputs(NamedTuple):
     minv: torch.Tensor  # (NL,) int32 min_intv of each lane
     ik: torch.Tensor  # (E, 3) idt forward intervals
     live: torch.Tensor  # (E,) bool
-    slots: int  # the register instance
 
 
 class V8Out(NamedTuple):
@@ -76,7 +67,9 @@ class V8Out(NamedTuple):
     s: torch.Tensor  # (E,) int32 size
     i: torch.Tensor  # (E,) int32 next query position; a mem starts at i+1
     flags: torch.Tensor  # (E,) uint8 LIVE | EMITTED
-    rounds: torch.Tensor  # (1,) int32 the pass's round count
+    # (4,) int32 [the pass's round count, the next lane to take, warps
+    # done, the warps' rounds summed]; the middle two 0 between launches
+    ctl: torch.Tensor
 
 
 def lane_order(rows: np.ndarray) -> np.ndarray:
@@ -91,17 +84,15 @@ def _on(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a).astype(np.int32)).to(dev)
 
 
-def v8_inputs(fm, qrows_dev, entry_dev, n_lanes: int, x0, minv,
-              max_len: "int | None" = None) -> V8Inputs:
+def v8_inputs(fm, qrows_dev, entry_dev, n_lanes: int, x0,
+              minv) -> V8Inputs:
     """The kernel's inputs from run_backward8's arguments, checked, on the
     entries' device; no host read. The lane column of entry_dev must be
     non-decreasing (seeding_flat.assemble_entries builds it so); the
     offsets come from it on the device, every lane ending at most at the
     pass's last live entry: the dead entries that pad a pass to its
     capacity (all in the last lane) can change nothing, and the kernel
-    does not walk them. max_len bounds the entries of a lane (default
-    F_CAP, the forward pass's pushes a read); a longer lane is still
-    exact, walked in chunks."""
+    does not walk them."""
     ik, _, lane, live = entry_dev
     dev = ik.device
     if fm.o2_tables().device != dev:
@@ -132,34 +123,33 @@ def v8_inputs(fm, qrows_dev, entry_dev, n_lanes: int, x0, minv,
     if x0_d.shape != (NL,) or minv_d.shape != (NL,):
         raise ValueError(f"x0 and minv must be ({NL},)")
     return V8Inputs(qrows_dev.contiguous(), lane_off, x0_d, minv_d,
-                    ik.to(fm.idt).contiguous(), live.contiguous(),
-                    slot_count(F_CAP if max_len is None else max_len,
-                               SLOTS))
+                    ik.to(fm.idt).contiguous(), live.contiguous())
 
 
 def v8_outputs(fm, E: int, dev) -> V8Out:
-    """The outputs of a pass of E entries: flags zero-filled (an entry past
-    every lane keeps 0), the rest written by the kernel."""
+    """The outputs of a pass of E entries: flags (an entry past every lane
+    keeps 0) and ctl zero-filled, the rest written by the kernel."""
     return V8Out(torch.empty(E, dtype=fm.idt, device=dev),
                  torch.empty(E, dtype=torch.int32, device=dev),
                  torch.empty(E, dtype=torch.int32, device=dev),
                  torch.zeros(E, dtype=torch.uint8, device=dev),
-                 torch.zeros(1, dtype=torch.int32, device=dev))
+                 torch.zeros(4, dtype=torch.int32, device=dev))
 
 
-def v8_launch(fm, inp: V8Inputs, out: V8Out) -> int:
+def v8_launch(fm, inp: V8Inputs, out: V8Out, fn=None) -> int:
     """One launch of the kernel into out (every entry of a lane is
-    written, so launches into the same outputs repeat). Returns the
+    written, so launches into the same outputs repeat), through fn (the C
+    entry point of ENTRY; by default this checkout's). Returns the
     cudaError (0 = launched). Not counted: v8_pass_kernel counts its
     launches."""
     NL, L = inp.q.shape
     E = inp.ik.shape[0]
     return _build.launch_on(
-        inp.q.device, _build.entry(*ENTRY), *fm.o2_args(), inp.q.data_ptr(),
-        NL, L, inp.lane_off.data_ptr(), inp.x0.data_ptr(),
+        inp.q.device, fn or _build.entry(*ENTRY), *fm.o2_args(),
+        inp.q.data_ptr(), NL, L, inp.lane_off.data_ptr(), inp.x0.data_ptr(),
         inp.minv.data_ptr(), inp.ik.data_ptr(), inp.live.data_ptr(), E,
-        inp.slots, out.k0.data_ptr(), out.s.data_ptr(), out.i.data_ptr(),
-        out.flags.data_ptr(), out.rounds.data_ptr())
+        out.k0.data_ptr(), out.s.data_ptr(), out.i.data_ptr(),
+        out.flags.data_ptr(), out.ctl.data_ptr())
 
 
 def pack_v8(out: V8Out, ik: torch.Tensor, info: torch.Tensor,
@@ -183,7 +173,7 @@ def v8_pass_kernel(fm, qrows_dev, entry_dev, n_lanes: int, x0, minv,
                    extra_ov=None, stats: "dict | None" = None,
                    max_len: "int | None" = None):
     """run_backward8 in one launch of the v8 kernel (see the module note
-    and v8_rows)."""
+    and v8_rows); max_len is not read."""
     dev = entry_dev[0].device
     if dev.type == "cpu":
         return B8.run_backward8(fm, qrows_dev, entry_dev, n_lanes, x0, minv,
@@ -192,7 +182,7 @@ def v8_pass_kernel(fm, qrows_dev, entry_dev, n_lanes: int, x0, minv,
     if dev.type != "cuda":
         raise ValueError(f"no v8 kernel for device {dev}")
     return v8_rows(fm, qrows_dev, entry_dev, n_lanes, x0, minv, min_len,
-                   raw, est_rows, extra_ov, stats, max_len, _launch)
+                   raw, est_rows, extra_ov, stats, _launch)
 
 
 def _launch(fm, inp: V8Inputs, out: V8Out) -> None:
@@ -204,19 +194,19 @@ def _launch(fm, inp: V8Inputs, out: V8Out) -> None:
 
 
 def v8_rows(fm, qrows_dev, entry_dev, n_lanes: int, x0, minv, min_len: int,
-            raw: bool, est_rows: int, extra_ov, stats, max_len, launch):
+            raw: bool, est_rows: int, extra_ov, stats, launch):
     """The kernel's route around launch(fm, inputs, outputs), which fills
     the outputs of every entry of a lane: the inputs (v8_inputs), the
     launch, the rows' compaction on the device and their pull. stats, when
     given, accumulates "bwd_segments" (host reads: one, or two when more rows
     than est_rows come) and "bwd_rounds" (the pass's round count, the most
     rounds any lane ran)."""
-    inp = v8_inputs(fm, qrows_dev, entry_dev, n_lanes, x0, minv, max_len)
+    inp = v8_inputs(fm, qrows_dev, entry_dev, n_lanes, x0, minv)
     E = inp.ik.shape[0]
     out = v8_outputs(fm, E, inp.ik.device)
     if E > 0:
         launch(fm, inp, out)
-    rounds_host = rounds_on_host(out.rounds, stats)
+    rounds_host = rounds_on_host(out.ctl[:1], stats)
     _, info, lane, _ = entry_dev
     rows, ov, reads = pull_rows(
         pack_v8(out, inp.ik, info, lane, min_len, extra_ov), est_rows)
