@@ -84,14 +84,19 @@ class FastqIndex:
     def __len__(self):
         return len(self.l_seq)
 
-    def load(self, lo: int, hi: int, copy_comment: bool = False) -> List[BSeq]:
-        """Materialize records [lo, hi) by reading one contiguous byte
-        range (the analog of pread_fastq_chunck, parallel_aux.c:2767)."""
-        if hi <= lo:
-            return []
+    def read_range(self, lo: int, hi: int) -> bytes:
+        """The bytes of records [lo, hi): one contiguous read (the analog
+        of pread_fastq_chunck, parallel_aux.c:2767)."""
         with open(self.path, "rb") as f:
             f.seek(int(self.offsets[lo]))
-            data = f.read(int(self.offsets[hi]) - int(self.offsets[lo]))
+            return f.read(int(self.offsets[hi]) - int(self.offsets[lo]))
+
+    def load(self, lo: int, hi: int, copy_comment: bool = False) -> List[BSeq]:
+        """Materialize records [lo, hi) read by read: the route without
+        the C runtime, and for chunks load_columns sends back."""
+        if hi <= lo:
+            return []
+        data = self.read_range(lo, hi)
         out: List[BSeq] = []
         lines = data.split(b"\n")
         for i in range(hi - lo):
@@ -111,6 +116,53 @@ class FastqIndex:
                             qual=qual,
                             comment=comment if copy_comment else None))
         return out
+
+
+def load_columns(ranges, copy_comment: bool = False):
+    """The reads of ``ranges`` parsed in one C call into packed columns
+    (native/fastq.c), as a ReadBatch; None without the C runtime, or
+    when a header or quality holds a byte above 0x7f (then load() reads
+    the chunk). ranges: [(FastqIndex, lo, hi)], one range, or R1's and
+    R2's of the same reads, interleaved R1, R2 as in paired chunks.
+    Field for field what load() gives."""
+    import ctypes
+
+    from mpibwa_tpu_torch import native
+    from mpibwa_tpu_torch.io.columns import ReadBatch, ReadColumns
+
+    counts = [hi - lo for _, lo, hi in ranges]
+    if len(ranges) > 2 or len(set(counts)) > 1:
+        raise ValueError(f"one range, or two of one size: {counts}")
+    lib = native.get_lib()
+    if lib is None:
+        return None
+    bufs = [idx.read_range(lo, hi) for idx, lo, hi in ranges]
+    n = sum(counts)
+    # capacities: the index's sequence lengths for seq and qual, the
+    # rest of the bytes for names and comments; a column that outgrows
+    # its capacity (a malformed record) sends the chunk to load()
+    seq_cap = sum(int(idx.l_seq[lo:hi].sum()) for idx, lo, hi in ranges)
+    rest = max(sum(len(b) for b in bufs) - 2 * seq_cap, 0)
+    caps = (seq_cap, seq_cap, rest, rest if copy_comment else 0)
+    blobs = [np.empty(c, np.uint8) for c in caps]
+    offs = [np.empty(n + 1, np.int64) for _ in caps]
+    has_com = np.empty(n, np.uint8)
+    vp = ctypes.c_void_p
+    cols = []
+    for blob, off, cap in zip(blobs, offs, caps):
+        cols += [vp(blob.ctypes.data), ctypes.c_int64(cap),
+                 vp(off.ctypes.data)]
+    b2 = bufs[1] if len(bufs) > 1 else None
+    rc = lib.mpibwa_fastq_parse(
+        bufs[0], len(bufs[0]), b2, len(b2) if b2 else 0, n,
+        1 if copy_comment else 0, vp(NT4_TABLE.ctypes.data), *cols,
+        vp(has_com.ctypes.data))
+    if rc != 0:
+        return None
+    parts = []
+    for blob, off in zip(blobs, offs):
+        parts += [blob[: off[n]], off]
+    return ReadBatch.of(ReadColumns(*parts, has_com))
 
 
 def scan_fastq(path: str, block: int = 8 << 20) -> FastqIndex:

@@ -17,7 +17,7 @@ import threading
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _LIB_PATH = os.path.join(_DIR, "_libmpibwa.so")
-_SOURCES = ["fixmate.c", "sais.c", "finalize.c"]
+_SOURCES = ["fixmate.c", "sais.c", "finalize.c", "fastq.c"]
 _HEADERS = ["sais_core.h"]
 
 _lock = threading.Lock()
@@ -84,6 +84,12 @@ def get_lib():
         ]
         # finalization runtime (finalize.c)
         P = ctypes.c_void_p
+        I64 = ctypes.c_int64
+        # FASTQ chunk parser (fastq.c)
+        lib.mpibwa_fastq_parse.restype = ctypes.c_int
+        lib.mpibwa_fastq_parse.argtypes = [
+            ctypes.c_char_p, I64, ctypes.c_char_p, I64, I64, ctypes.c_int,
+            P, P, I64, P, P, I64, P, P, I64, P, P, I64, P, P]
         lib.fin_ctx_new.restype = P
         lib.fin_ctx_new.argtypes = [P, ctypes.c_int64, ctypes.c_int32,
                                     P, P, P, P, P, P, P, P, P, P]

@@ -31,7 +31,7 @@ import numpy as np
 from mpibwa_tpu_torch.core import opts as O
 from mpibwa_tpu_torch.io import bgzf as bgzf_mod
 from mpibwa_tpu_torch.io import headers as hdr_mod
-from mpibwa_tpu_torch.io.fastq import FastqIndex, scan_fastq
+from mpibwa_tpu_torch.io.fastq import FastqIndex, load_columns, scan_fastq
 from mpibwa_tpu_torch.io.fixmate import apply_fixmate
 from mpibwa_tpu_torch.parallel.chunker import chunk_pe, chunk_se
 
@@ -120,22 +120,27 @@ class ChunkPlan:
         return self.chunks[ci].count * mult
 
     def get_batch(self, ci: int):
+        """Chunk ci's reads (mates interleaved): packed columns parsed in
+        one C call (io/fastq.py load_columns), else read by read."""
         ch = self.chunks[ci]
+        lo, hi = ch.start, ch.start + ch.count
         if self.smartpe:
-            return self.idx1.load(ch.start * 2, (ch.start + ch.count) * 2,
-                                  self.copy_comment)
-        if self.is_pe:
-            r1 = self.idx1.load(ch.start, ch.start + ch.count,
-                                self.copy_comment)
-            r2 = self.idx2.load(ch.start, ch.start + ch.count,
-                                self.copy_comment)
-            out = []
-            for a, b in zip(r1, r2):
-                out.append(a)
-                out.append(b)
-            return out
-        return self.idx1.load(ch.start, ch.start + ch.count,
-                              self.copy_comment)
+            ranges = [(self.idx1, lo * 2, hi * 2)]
+        elif self.is_pe:
+            ranges = [(self.idx1, lo, hi), (self.idx2, lo, hi)]
+        else:
+            ranges = [(self.idx1, lo, hi)]
+        batch = load_columns(ranges, self.copy_comment)
+        if batch is not None:
+            return batch
+        r1, *r2 = [idx.load(a, b, self.copy_comment) for idx, a, b in ranges]
+        if not r2:
+            return r1
+        out = []
+        for a, b in zip(r1, r2[0]):
+            out.append(a)
+            out.append(b)
+        return out
 
 
 class Runtime:

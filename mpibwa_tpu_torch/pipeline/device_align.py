@@ -48,6 +48,7 @@ from mpibwa_tpu_torch.core.region import (cal_max_gap, mem_mark_primary_se,
                                           mem_reorder_primary5,
                                           mem_sort_dedup_patch)
 from mpibwa_tpu_torch.core.sam import mem_reg2sam
+from mpibwa_tpu_torch.io.columns import columns_of, seq_source
 from mpibwa_tpu_torch.pipeline.native_final import NativeChainer
 from mpibwa_tpu_torch.ops.extend_batch import extend_from_coords
 from mpibwa_tpu_torch.ops.fmd import DeviceFMIndex
@@ -126,10 +127,13 @@ class DeviceAligner:
         self.device = dfm.device
         self.seeder = DeviceSeeder(self.dfm, opt)
         # overflow_batches: microbatches that took the list route;
-        # cigar_problems / rescue_problems: the record route's device DPs
+        # cigar_problems / rescue_problems: the record route's device DPs;
+        # packed_reads / looped_reads: reads the C finalize took, their
+        # blobs sliced from the batch's columns / joined read by read
         self.stats = {"fallback_reads": 0, "ext_problems": 0, "ext_misses": 0,
                       "overflow_batches": 0, "cigar_problems": 0,
-                      "rescue_problems": 0, "t": {}}
+                      "rescue_problems": 0, "packed_reads": 0,
+                      "looped_reads": 0, "t": {}}
         self.mat55d = torch.from_numpy(
             opt.mat.reshape(5, 5).astype(np.int32)).to(self.device)
         self._qd = None  # device read batch of the list route's microbatch
@@ -155,6 +159,20 @@ class DeviceAligner:
         if self._chainer is None:
             self._chainer = _RangeChainer(fin)
         return self._chainer if self._chainer.available else None
+
+    def _count_packing(self, seqs):
+        """Count seqs under the route NativeFinalizer._pack_blobs took."""
+        key = ("packed_reads" if columns_of(seqs) is not None
+               else "looped_reads")
+        self.stats[key] += len(seqs)
+
+    def _finalize_in_c(self, fin, seqs, *args) -> bool:
+        """fin.finalize(seqs, *args), counting seqs when it wrote their
+        SAM text; False without fin."""
+        if fin is None or not fin.finalize(seqs, *args):
+            return False
+        self._count_packing(seqs)
+        return True
 
     def _add_time(self, name, t0):
         t = self.stats["t"]
@@ -264,7 +282,7 @@ class DeviceAligner:
         # both band tries (w and w<<1) ride one device call
         p1 = p.copy()
         p1[:, 0] = self.opt.w << 1
-        qd = torch.from_numpy(_pad_batch([s.seq for s in seqs])[0]).to(
+        qd = torch.from_numpy(_pad_batch(seq_source(seqs))[0]).to(
             self.device)
         both = self._ext_rows_run(qd, np.concatenate([c, c]),
                                   np.concatenate([p, p1]), maxq, maxt)
@@ -280,7 +298,7 @@ class DeviceAligner:
         device work overlaps this one's C chain session. Returns (rows,
         resolve), or None on a backward overflow."""
         t0 = time.time()
-        got = self.seeder.collect_flat([s.seq for s in seqs])
+        got = self.seeder.collect_flat(seq_source(seqs))
         if got is None:
             return None
         resolve = self._sa_prefetch(got[0])
@@ -324,7 +342,8 @@ class DeviceAligner:
     def _microbatches(self, seqs):
         """(real, padded) microbatches: a short tail of at least 256 reads
         is padded with dummy reads to the next power of two (capped at the
-        microbatch size)."""
+        microbatch size). A batch with columns (io/columns.py) gives
+        microbatches with theirs."""
         MB = self.MICROBATCH
         subs = []
         for off in range(0, len(seqs), MB):
@@ -335,8 +354,10 @@ class DeviceAligner:
                     cap <<= 1
                 dummy = BSeq(name="__pad__", seq=np.zeros(8, np.uint8),
                              qual="IIIIIIII")
-                subs.append((sub, list(sub) + [dummy] * (min(cap, MB)
-                                                         - len(sub))))
+                k = min(cap, MB) - len(sub)
+                subs.append((sub, sub.padded(dummy, k)
+                             if columns_of(sub) is not None
+                             else list(sub) + [dummy] * k))
             else:
                 subs.append((sub, sub))
         return subs
@@ -574,7 +595,7 @@ class DeviceAligner:
     def _align_regs_inner(self, seqs: List[BSeq]) -> List[List[R.AlnReg]]:
         opt, fm, refs = self.opt, self.fm, self.refs
         t0 = time.time()
-        mems, fallback = self.seeder.collect_batch([s.seq for s in seqs])
+        mems, fallback = self.seeder.collect_batch(seq_source(seqs))
         self._qd = self.seeder.last_qd
         self._add_time("seed", t0)
         self.stats["fallback_reads"] += int(fallback.sum())
@@ -647,6 +668,8 @@ class DeviceAligner:
         else:
             ok = chainer.finalize_packed(seqs, regs, reg_off, False,
                                          n_processed, rg_id)
+        if ok:
+            self._count_packing(seqs)
         self._add_time("emit", t0)
         return ok
 
@@ -670,8 +693,8 @@ class DeviceAligner:
             if opt.flag & O.MEM_F_PE:
                 pes = pes0 if pes0 is not None else mem_pestat(
                     opt, refs.l_pac, regs_all)
-                if fin is None or not fin.finalize(
-                        seqs, regs_all, True, n_processed >> 1, rg_id, pes):
+                if not self._finalize_in_c(fin, seqs, regs_all, True,
+                                           n_processed >> 1, rg_id, pes):
                     t1 = time.time()
                     sw_cache = precompute_rescue(opt, refs, self.dfm, seqs,
                                                  regs_all, pes)
@@ -683,8 +706,8 @@ class DeviceAligner:
                         mem_sam_pe(opt, refs, pes, (n_processed >> 1) + i,
                                    seqs[i << 1: (i << 1) + 2],
                                    regs_all[i << 1: (i << 1) + 2], rg_id)
-            elif fin is None or not fin.finalize(seqs, regs_all, False,
-                                                 n_processed, rg_id):
+            elif not self._finalize_in_c(fin, seqs, regs_all, False,
+                                         n_processed, rg_id):
                 for i, s in enumerate(seqs):
                     regs = regs_all[i]
                     mem_mark_primary_se(opt, regs, n_processed + i)
@@ -874,7 +897,7 @@ def precompute_rescue(opt, refs, dfm, seqs, regs_all, pes):
     Tcap = 256
     while Tcap < maxt:
         Tcap <<= 1
-    qd = torch.from_numpy(_pad_batch([s.seq for s in seqs])[0]).to(dfm.device)
+    qd = torch.from_numpy(_pad_batch(seq_source(seqs))[0]).to(dfm.device)
     res = ksw_align2_batch(dfm, qd, [{"qcoords": qc, "tcoords": tc}
                                      for _, qc, tc in jobs], opt, N, Tcap)
     return {key: r for (key, _, _), r in zip(jobs, res)}

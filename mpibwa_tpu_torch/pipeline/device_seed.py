@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from mpibwa_tpu_torch.core.sortutil import ks_introsort
+from mpibwa_tpu_torch.io.columns import ReadColumns
 from mpibwa_tpu_torch.ops import backward8 as B8
 from mpibwa_tpu_torch.ops import fwd_cuda
 from mpibwa_tpu_torch.ops import seeding
@@ -47,13 +48,29 @@ from mpibwa_tpu_torch.ops import v8_cuda
 from mpibwa_tpu_torch.ops.pulls import pull_prefix, pull_prefix_async
 
 
-def _pad_batch(qs: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+def _pad_batch(qs) -> Tuple[np.ndarray, np.ndarray]:
+    """The (B, L) code matrix, padded with 4, and the lengths of qs: one
+    array a read, or a batch's ReadColumns (its seq column copied in one
+    step)."""
     B = len(qs)
-    L = max((len(q) for q in qs), default=1)
+    cols = qs if isinstance(qs, ReadColumns) else None
+    if cols is not None:
+        lens = np.diff(cols.seq_off).astype(np.int32)
+        L = int(lens.max()) if B else 1
+    else:
+        L = max((len(q) for q in qs), default=1)
     L = max(L, 8)
     if L >= (1 << 21):  # 21-bit call fields in the fused p1/p3 pull
         raise ValueError("reads >= 2 Mbp unsupported by the device seeder")
     out = np.full((B, L), 4, dtype=np.uint8)
+    if cols is not None:
+        if B and (lens == lens[0]).all():
+            out[:, : lens[0]] = cols.seq.reshape(B, int(lens[0]))
+        else:  # each base to its row's start plus its place in the read
+            starts = np.arange(B, dtype=np.int64) * L - cols.seq_off[:-1]
+            out.reshape(-1)[np.repeat(starts, lens)
+                            + np.arange(len(cols.seq))] = cols.seq
+        return out, lens
     lens = np.zeros(B, dtype=np.int32)
     for i, q in enumerate(qs):
         out[i, : len(q)] = q
@@ -351,11 +368,11 @@ class DeviceSeeder:
              packed[b_, 2 + 2 * C + c_]], axis=1).astype(np.int32)
         return fwd.ivals, fwd.infos, fallback, ncl, calls_np, None
 
-    def collect_batch(self, qs: List[np.ndarray], sort: bool = True
+    def collect_batch(self, qs, sort: bool = True
                       ) -> Tuple[List[Optional[List[tuple]]], np.ndarray]:
-        """Returns (per-read interval lists, fallback_mask). Lists are None
-        for reads needing host fallback. sort=False returns the pre-sort
-        pass order."""
+        """Returns (per-read interval lists, fallback_mask) for the reads
+        qs (as _pad_batch takes them). Lists are None for reads needing
+        host fallback. sort=False returns the pre-sort pass order."""
         t0 = time.time()
         opt = self.opt
         B = len(qs)
@@ -510,11 +527,12 @@ class DeviceSeeder:
         order = np.lexsort((-np.arange(len(rows)), rows[:, 5]))
         return rows[order]
 
-    def collect_flat(self, qs: List[np.ndarray]):
-        """Arrays-end-to-end collect_intv: (flat (M, 4) int64 rows in
-        pre-sort pass order, mem_off int64[B+1], fallback (B,) bool), or
-        None on a backward overflow (the caller takes the list path).
-        Row-for-row equal to the packed collect_batch(sort=False)."""
+    def collect_flat(self, qs):
+        """Arrays-end-to-end collect_intv over the reads qs (as _pad_batch
+        takes them): (flat (M, 4) int64 rows in pre-sort pass order,
+        mem_off int64[B+1], fallback (B,) bool), or None on a backward
+        overflow (the caller takes the list path). Row-for-row equal to
+        the packed collect_batch(sort=False)."""
         t0 = time.time()
         opt = self.opt
         B = len(qs)

@@ -23,6 +23,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from mpibwa_tpu_torch.io.columns import columns_of
+
 # Core-share bookkeeping for intra-batch parallel C phases: each entering
 # batch takes a slot and receives its fair share of cores, so a single
 # whole-file chunk (the reference's default -K covers the bundled example
@@ -160,6 +162,11 @@ class NativeFinalizer:
 
     @staticmethod
     def _pack_blobs(seqs):
+        """The reads' fields as blobs and offsets: the batch's own columns
+        when it has them (io/columns.py), else joined read by read."""
+        cols = columns_of(seqs)
+        if cols is not None:
+            return cols.blobs()
         n = len(seqs)
         seq_off = np.zeros(n + 1, np.int64)
         qual_off = np.zeros(n + 1, np.int64)

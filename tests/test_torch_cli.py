@@ -1,7 +1,7 @@
 """End to end: `mpibwa_tpu_torch.cli mem` writes the same bytes as
 `mpibwa_tpu.cli mem` on the toy genome (SE, PE, both MPIBWA_EXT values,
-fixmate, BGZF, BAM, trimmed PE, -t 2, by-chromosome output and the
-backward-overflow route),
+fixmate, BGZF, BAM, trimmed PE, -t 2, CRLF input, by-chromosome output
+and the backward-overflow route),
 with the port on the CPU. Also: the port never imports jax, and asking
 for CUDA without a card raises."""
 
@@ -41,7 +41,16 @@ def data(tmp_path_factory):
             "r2": _head(paths["r2"], str(d / "a2.fq"), N_PAIRS),
             "o1": _head(paths["r1"], str(d / "o1.fq"), 64),
             "o2": _head(paths["r2"], str(d / "o2.fq"), 64),
-            "trim2": _trimmed(str(d / "o2.fq"), str(d / "trim2.fq"))}
+            "trim2": _trimmed(str(d / "o2.fq"), str(d / "trim2.fq")),
+            "crlf1": _crlf(str(d / "o1.fq"), str(d / "crlf1.fq")),
+            "crlf2": _crlf(str(d / "o2.fq"), str(d / "crlf2.fq"))}
+
+
+def _crlf(src: str, dst: str) -> str:
+    """src with CRLF line ends."""
+    with open(src, "rb") as f, open(dst, "wb") as g:
+        g.write(f.read().replace(b"\n", b"\r\n"))
+    return dst
 
 
 def _trimmed(src: str, dst: str) -> str:
@@ -104,10 +113,11 @@ def test_mem_output_flags_identical(data, tmp_path, monkeypatch, flag, out):
     assert got == want
 
 
-@pytest.mark.parametrize("case", ["trimmed_pe", "bam", "t2"])
+@pytest.mark.parametrize("case", ["trimmed_pe", "bam", "t2", "crlf"])
 def test_more_flags_identical(data, tmp_path, monkeypatch, case):
-    """Trimmed PE (R2 cut, several chunks), BAM output (-b) and two
-    workers (-t 2, which also sets the default -K) on both CLIs."""
+    """Trimmed PE (R2 cut, several chunks), BAM output (-b), two workers
+    (-t 2, which also sets the default -K) and CRLF input (several
+    chunks) on both CLIs."""
     monkeypatch.delenv("MPIBWA_EXT", raising=False)
     args, out = {
         "trimmed_pe": (["-t", "1", "-K", "4000", data["ref"], data["o1"],
@@ -115,6 +125,8 @@ def test_more_flags_identical(data, tmp_path, monkeypatch, case):
         "bam": (["-b", "-t", "1", data["ref"], data["o1"], data["o2"]],
                 "out.bam"),
         "t2": (["-t", "2", data["ref"], data["o1"], data["o2"]], "out.sam"),
+        "crlf": (["-t", "1", "-K", "4000", data["ref"], data["crlf1"],
+                  data["crlf2"]], "out.sam"),
     }[case]
     want, got = _run_both(tmp_path, monkeypatch, args, out)
     assert got == want
