@@ -5,13 +5,14 @@
         --seeds 11,12,13 --control-seeds 21,22,23 [--control w=0]
 
 Set-up runs once. Then each seed's pool goes through a warm-up and a
-window of --seconds, as in a run, and the reference's numbers are printed
-(one JSON line a seed, "side": "program"). The control is the program with
-one guarantee of the configuration broken (--control: mem options as
-key=value; by default -w 0: a band of 0, an ungapped extension, where the
-configuration states bwa's -w 100), run the same way on the control seeds
-("side": "control"). Only the first window of each side warms up.
---rehearse runs it on the CPU at the rehearsal's tiny genome.
+window of --seconds, as in a run, and the mix's check's numbers are
+printed (one JSON line a seed, "side": "program"). The control is the
+program with one guarantee of the configuration broken (--control: mem
+options as key=value, a number where it reads as one; by default -w 0: a
+band of 0, an ungapped extension, where the configuration states bwa's
+-w 100), run the same way on the control seeds ("side": "control"). Only
+the first window of each side warms up. --rehearse runs it on the CPU at
+the rehearsal's tiny genome.
 """
 
 from __future__ import annotations
@@ -58,10 +59,8 @@ def main(argv=None) -> int:
     ctrl = dict(s.options)
     for kv in filter(None, args.control.split(",")):
         k, v = kv.split("=")
-        ctrl[k] = int(v)
-    twins = s.workers.twins(program.make_opt(ctrl))
-    n_sample = (C.REHEARSAL["sample_pairs"] if args.rehearse
-                else int(cell.traffic["sample_pairs"]))
+        ctrl[k] = int(v) if v.lstrip("-").isdigit() else v
+    twins = s.workers.twins(program.make_opt(ctrl, s.generator.PAIRED))
     limits = C.limits_of(cell)
     warmed = None
     try:
@@ -70,10 +69,10 @@ def main(argv=None) -> int:
                 ("control", twins, args.control_seeds)):
             for seed in [int(x) for x in filter(None, seeds.split(","))]:
                 t0 = time.time()
-                win, sink, pairs, _, _, _ = s.window(
+                win, sink, pool, _, _, _ = s.window(
                     aligners, seed, args.seconds, warm=aligners is not warmed)
                 warmed = aligners
-                nums = s.check(sink, pairs, n_sample)
+                nums = s.check(sink, pool)
                 correct, _ = C.judge(nums, limits)
                 print(json.dumps({"side": side, "seed": seed,
                                   "correct": correct, "reads": win.reads,

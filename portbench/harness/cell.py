@@ -2,11 +2,13 @@
 
 Set-up makes the reference from the configuration's genome seed (and on
 a checkout's first run writes it and builds its index under
-build/portbench/), writes the seed's FASTQ pool into TMPDIR, loads the
-index, builds the workers and warms them up with one chunk each. The
-window then cycles through the pool (window.py). Once it has closed, the
-peak memory is read, the program's state freed, and the reference judges
-a sample of the records (reference.py).
+build/portbench/), loads the index, builds the workers, has the mix's
+generator (generators/<name>.py) write the seed's FASTQ pool into TMPDIR,
+plans its chunks as `cli mem` does and warms the workers up with one chunk
+each. The window then cycles through the pool (window.py). Once it has
+closed, the peak memory is read, the program's state freed, and the mix's
+check (checks/<name>.py, by the rules of reference.py) judges a sample of
+the records.
 """
 
 from __future__ import annotations
@@ -24,16 +26,15 @@ import numpy as np
 
 from . import genome as G
 from . import program
-from . import reference
 from . import trace as T
-from .simulate import fastq_bytes, pairs_per_chunk, simulate_pairs
-from .spec import ROOT
+from .spec import ROOT, mix_module
 from .window import Sink, clock, run_window
 
 JAX_NAMES = ("jax", "jaxlib", "flax", "mpibwa_tpu")
-# the CPU rehearsal's sizes: a small genome, small chunks, a short pool
+# the CPU rehearsal's sizes: a small genome, small chunks, a short pool,
+# the sample in units (pairs or reads)
 REHEARSAL = {"genome_length": 2_000_000, "K": 100_000, "pool_chunks": 6,
-             "sample_pairs": 300}
+             "sample": 300}
 
 
 def seed_entropy(seed: int) -> int:
@@ -77,11 +78,13 @@ class Setup:
         self.contig = cfg["genome"]["contig"]
         self.codes, ref = reference_genome(cfg["genome"], n)
         t = self._phase("genome", t)
+        self.generator = mix_module(cell.traffic, "generator")
+        self.checker = mix_module(cell.traffic, "check")
         self.options = dict(cfg["mem_options"], K=cfg["chunk_bases"],
                             **(options or {}))
         if rehearse:
             self.options["K"] = REHEARSAL["K"]
-        self.opt = program.make_opt(self.options)
+        self.opt = program.make_opt(self.options, self.generator.PAIRED)
         self.chunk = program.chunk_bases(self.options, self.opt)
         self.idx = program.load_index(ref)
         t = self._phase("load_index", t)
@@ -99,26 +102,26 @@ class Setup:
         return t
 
     def pool(self, seed: int):
-        """The seed's FASTQ pool: (pairs, plan, first pair and pairs of
-        each chunk)."""
-        tr = self.cell.traffic
-        L = int(tr["read_len"])
-        per = pairs_per_chunk(self.chunk, L)
+        """The seed's pool (simulate.Pool) and the program's plan of it,
+        which has to be the generator's."""
         n_pool = REHEARSAL["pool_chunks"] if self.rehearse \
-            else int(tr["pool_chunks"])
-        pairs = simulate_pairs(self.codes, n_pool * per, seed_entropy(seed),
-                               tr)
-        paths = [os.path.join(self.tmp, f"r{m}.fq") for m in (1, 2)]
-        for path, reads in zip(paths, (pairs.r1, pairs.r2)):
-            with open(path, "wb") as fh:
-                fh.write(fastq_bytes(reads, 0))
-        plan_ = program.plan(paths[0], paths[1], self.chunk)
-        counts = [c.count for c in plan_.chunks]
-        if counts != [per] * n_pool:
-            raise RuntimeError(f"chunks of {counts} pairs, not {n_pool} of "
-                               f"{per}")
-        first = np.array([c.start for c in plan_.chunks], np.int64)
-        return pairs, plan_, first, np.array(counts, np.int64)
+            else int(self.cell.traffic["pool_chunks"])
+        pool = self.generator.pool(self.codes, seed_entropy(seed),
+                                   self.cell.traffic, self.chunk, n_pool,
+                                   self.tmp)
+        plan_ = program.plan(pool.paths, self.chunk, self.opt)
+        got = [(c.start, c.count) for c in plan_.chunks]
+        want = list(zip(pool.first.tolist(), pool.units.tolist()))
+        if got != want or plan_.is_pe != self.generator.PAIRED:
+            raise RuntimeError(f"the program planned chunks {got[:3]}... "
+                               f"(paired {plan_.is_pe}), the generator "
+                               f"{want[:3]}... of {n_pool}")
+        return pool, plan_
+
+    def sample_size(self) -> int:
+        """Units the check judges: the rehearsal's, or the mix's."""
+        return (REHEARSAL["sample"] if self.rehearse
+                else int(self.cell.traffic[self.generator.SAMPLE]))
 
     def sync(self):
         if self.device.type == "cuda":
@@ -137,35 +140,32 @@ class Setup:
     def window(self, aligners, seed: int, seconds: float,
                traced: bool = False, warm: bool = True):
         """Warm-up (one chunk a worker) and window over the seed's pool:
-        (Window, Sink, pairs, counter deltas, trace summary or None, the
+        (Window, Sink, pool, counter deltas, trace summary or None, the
         clock when set-up ended)."""
         t = clock()
-        pairs, plan_, first, pairs_in = self.pool(seed)
+        pool, plan_ = self.pool(seed)
         t = self._phase("pool", t)
-        tr = self.cell.traffic
-        n_pool = len(pairs_in)
+        n_pool = len(pool.units)
         nw = len(aligners)
-        n_sample = (REHEARSAL["sample_pairs"] if self.rehearse
-                    else int(tr["sample_pairs"]))
+        n_sample = self.sample_size()
 
         spans: list = []
         span_log = None
 
         def chunk_fn(al, ci):
-            return program.run_chunk(al, plan_, ci, clock, span_log)
+            return program.run_chunk(al, plan_, ci, clock, span_log,
+                                     pool.n_processed[ci])
 
         if warm:
             run_window(chunk_fn, aligners, n_pool, float("inf"),
-                       Sink(first, pairs_in, seed_entropy(seed), 0),
-                       pairs_in, max_rounds=1)
+                       Sink(pool, seed_entropy(seed), 0), max_rounds=1)
         self.sync()
         t_ready = self._phase("warm_up", t)
         print("[portbench] set-up seconds: " + ", ".join(
             f"{k} {v:.2f}" for k, v in self.phases.items()),
             file=sys.stderr, flush=True)
         c0 = program.counters(aligners)
-        sink = Sink(first, pairs_in, seed_entropy(seed),
-                    -(-n_sample // nw))
+        sink = Sink(pool, seed_entropy(seed), -(-n_sample // nw))
         if traced:
             from torch.profiler import ProfilerActivity, profile
 
@@ -175,8 +175,7 @@ class Setup:
             prof.start()
             time.sleep(T.MARGIN_S)  # the anchor well inside the capture
             a0 = self.anchor()
-        win = run_window(chunk_fn, aligners, n_pool, seconds, sink, pairs_in,
-                         first=nw)
+        win = run_window(chunk_fn, aligners, n_pool, seconds, sink, first=nw)
         summary = None
         if traced:
             a1 = self.anchor()
@@ -196,14 +195,14 @@ class Setup:
         self.sync()
         c1 = program.counters(aligners)
         deltas = {k: c1[k] - c0[k] for k in c0}
-        return win, sink, pairs, deltas, summary, t_ready
+        return win, sink, pool, deltas, summary, t_ready
 
-    def check(self, sink, pairs, n_sample: int) -> dict:
-        tr = self.cell.traffic
-        nums = reference.check_pairs(
-            sink.sample(n_sample), pairs, self.codes,
-            self.cell.config["scoring"], self.contig, tr["insert_mean"],
-            tr["insert_sd"])
+    def check(self, sink, pool) -> dict:
+        """The mix's check of a sample of the kept records, and the reads
+        whose record was missing."""
+        nums = self.checker.check(
+            sink.sample(self.sample_size()), pool.truth, self.codes,
+            self.contig, self.cell.config["scoring"], self.cell.traffic)
         nums["missing_records"] = sink.missing
         return nums
 
@@ -216,6 +215,10 @@ def limits_of(cell) -> dict:
 
 
 def judge(nums: dict, limits: dict) -> "tuple[bool, dict]":
+    unknown = sorted(set(limits) - set(nums))
+    if unknown:
+        raise KeyError(f"limits name numbers the check did not compute: "
+                       f"{', '.join(unknown)}")
     checks = {k: {"value": nums[k], "limit": limits[k]} for k in limits}
     return all(c["value"] <= c["limit"] for c in checks.values()), checks
 
@@ -254,7 +257,7 @@ def measure(cell, seed: int, seconds: float, traced: bool, rehearse: bool,
         device = torch.device("cuda", 0)
     s = Setup(cell, device, rehearse, options)
     try:
-        win, sink, pairs, deltas, summary, t_ready = s.window(
+        win, sink, pool, deltas, summary, t_ready = s.window(
             s.aligners, seed, seconds, traced)
         peak = (torch.cuda.max_memory_allocated(device)
                 if device.type == "cuda" else 0)
@@ -265,9 +268,7 @@ def measure(cell, seed: int, seconds: float, traced: bool, rehearse: bool,
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
-        n_sample = (REHEARSAL["sample_pairs"] if rehearse
-                    else int(cell.traffic["sample_pairs"]))
-        nums = s.check(sink, pairs, n_sample)
+        nums = s.check(sink, pool)
     finally:
         s.close()
     correct, checks = judge(nums, limits_of(cell))

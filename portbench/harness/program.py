@@ -2,10 +2,10 @@
 
 ``cli mem`` loads the index, builds one ``DeviceAligner`` a worker (``-t``
 maps to min(t, 4) workers sharing one ``DeviceFMIndex`` on the card,
-``cli.py``), plans chunks with ``scan_fastq`` and ``chunk_pe`` and runs
-them through ``Runtime._execute``. The benchmark builds the same objects
-here; its window (window.py) runs the chunk path of ``_execute``. This is
-the one module of the benchmark that imports the program.
+``cli.py``), plans chunks with ``Runtime.plan`` and runs them through
+``Runtime._execute``. The benchmark builds the same objects here; its
+window (window.py) runs the chunk path of ``_execute``. This is the one
+module of the benchmark that imports the program.
 """
 
 from __future__ import annotations
@@ -18,12 +18,21 @@ import numpy as np
 
 from . import genome as G
 
-# mem's integer options the configurations use, by letter (cli.main_mem)
+# mem's options that set mem_opt, by letter, as cli.main_mem parses them
 INT_OPTS = {"k": "min_seed_len", "w": "w", "A": "a", "B": "b", "T": "T",
             "U": "pen_unpaired", "c": "max_occ", "d": "zdrop",
             "m": "max_matesw", "s": "split_width", "G": "max_chain_gap",
             "N": "max_chain_extend", "W": "min_chain_weight",
             "y": "max_mem_intv"}
+FLOAT_OPTS = {"r": "split_factor", "D": "drop_ratio"}
+PAIR_OPTS = {"O": ("o_del", "o_ins"), "E": ("e_del", "e_ins"),
+             "L": ("pen_clip5", "pen_clip3")}  # INT[,INT]
+FLAG_OPTS = {"P": ("MEM_F_NOPAIRING",), "a": ("MEM_F_ALL",),
+             "p": ("MEM_F_PE", "MEM_F_SMARTPE"), "M": ("MEM_F_NO_MULTI",),
+             "S": ("MEM_F_NO_RESCUE",), "Y": ("MEM_F_SOFTCLIP",),
+             "V": ("MEM_F_REF_HDR",),
+             "5": ("MEM_F_PRIMARY5", "MEM_F_KEEP_SUPP_MAPQ"),
+             "q": ("MEM_F_KEEP_SUPP_MAPQ",)}
 
 
 def ensure_index(cache: str, contig: str, seq: np.ndarray) -> str:
@@ -52,26 +61,77 @@ def load_index(ref: str):
     return load(ref)
 
 
-def make_opt(options: dict):
+def make_opt(options: dict, paired: bool):
     """mem_opt as `cli mem` builds it from these options (defaults
-    otherwise), for paired input."""
+    otherwise), in their order: each option as cli.main_mem sets it, then
+    the -x preset, else the -A rescaling, then the scoring matrix; with
+    MEM_F_PE for paired input, as Runtime.run adds it. Options by letter:
+    a number or "INT,INT" string as on the command line, true for a
+    switch, x a preset's name; K is the chunk size, not an opt field."""
+    import math
+
+    from mpibwa_tpu_torch.cli import _split_two
     from mpibwa_tpu_torch.core import opts as O
 
     opt = O.mem_opt_init()
     explicitly = set()
+    preset = None
+
+    def seti(name, v):
+        setattr(opt, name, v)
+        explicitly.add(name)
+
     for key, val in options.items():
         if key == "t":
             opt.n_threads = max(int(val), 1)
+        elif key == "x":
+            preset = str(val)
         elif key in INT_OPTS:
-            setattr(opt, INT_OPTS[key], int(val))
-            explicitly.add(INT_OPTS[key])
+            seti(INT_OPTS[key], int(val))
+        elif key in FLOAT_OPTS:
+            seti(FLOAT_OPTS[key], float(val))
+        elif key == "X":
+            opt.mask_level = float(val)
+        elif key in PAIR_OPTS:
+            v1, v2 = _split_two(str(val))
+            first, second = PAIR_OPTS[key]
+            seti(first, v1)
+            seti(second, v1 if v2 is None else v2)
+        elif key in FLAG_OPTS:
+            if val is not True:
+                raise ValueError(f"switch -{key} takes true, not {val!r}")
+            for name in FLAG_OPTS[key]:
+                opt.flag |= getattr(O, name)
+        elif key == "h":
+            explicitly |= {"max_XA_hits", "max_XA_hits_alt"}
+            parts = str(val).replace(";", ",").split(",")
+            opt.max_XA_hits = opt.max_XA_hits_alt = int(parts[0])
+            if len(parts) > 1 and parts[1]:
+                opt.max_XA_hits_alt = int(parts[1])
+        elif key == "Q":
+            explicitly.add("mapQ_coef_len")
+            opt.mapQ_coef_len = float(int(val))
+            opt.mapQ_coef_fac = (int(math.log(opt.mapQ_coef_len))
+                                 if opt.mapQ_coef_len > 0 else 0)
         elif key != "K":
-            raise ValueError(f"option -{key} is not one the benchmark sets")
-    O.rescale_by_a(opt, explicitly, preset=None)
+            raise ValueError(f"option -{key} sets no field of mem_opt")
+    if preset is not None:
+        O.apply_preset(opt, preset, explicitly)
+    else:
+        O.rescale_by_a(opt, explicitly, preset=None)
     opt.mat = O.fill_scmat(opt.a, opt.b)
     opt.round_float_fields()
-    opt.flag |= O.MEM_F_PE
+    if paired:
+        opt.flag |= O.MEM_F_PE
     return opt
+
+
+def mem_argv(options: dict) -> "list[str]":
+    """The `cli mem` arguments of these options."""
+    argv = []
+    for key, val in options.items():
+        argv += [f"-{key}"] if val is True else [f"-{key}", str(val)]
+    return argv
 
 
 def n_workers(options: dict) -> int:
@@ -110,27 +170,29 @@ class Workers:
                               refs=self.refs) for _ in self.aligners]
 
 
-def plan(r1: str, r2: str, chunk: int):
-    """The chunk plan of `cli mem` for equal-size paired files
-    (Runtime.plan's untrimmed branch)."""
-    from mpibwa_tpu_torch.io.fastq import scan_fastq
-    from mpibwa_tpu_torch.parallel.chunker import chunk_pe
-    from mpibwa_tpu_torch.parallel.runtime import ChunkPlan
+def plan(paths: "list[str]", chunk: int, opt):
+    """The chunk plan of `cli mem` for one FASTQ file or two, by
+    Runtime.plan itself (one process, no shards)."""
+    import types
 
-    idx1, idx2 = scan_fastq(r1), scan_fastq(r2)
-    chunks = chunk_pe(idx1.l_seq, idx2.l_seq, chunk, False)
-    return ChunkPlan(chunks, True, True, idx1, idx2, False, False)
+    from mpibwa_tpu_torch.parallel.runtime import Runtime
+
+    runtime = types.SimpleNamespace(n_shards=1, shard=0, opt=opt,
+                                    fixed_chunk_size=chunk,
+                                    times={"parse": 0.0})
+    return Runtime.plan(runtime, paths[0], paths[1] if len(paths) > 1
+                        else None)
 
 
-def run_chunk(al, plan_, ci: int, clock, spans=None
+def run_chunk(al, plan_, ci: int, clock, spans=None, n_processed: int = 0
               ) -> "tuple[list, float]":
-    """One chunk as Runtime._execute runs it (untrimmed PE: n_processed 0,
-    no fixmate): its records and the parse seconds. With spans, records
-    the parse and the records' text as spans."""
+    """One chunk as Runtime._execute runs it (no fixmate), with its
+    n_processed: its records, one a read, and the parse seconds. With
+    spans, records the parse and the records' text as spans."""
     t0 = clock()
     batch = plan_.get_batch(ci)
     t1 = clock()
-    al.process_seqs(batch, n_processed=0, pes0=None, rg_id="")
+    al.process_seqs(batch, n_processed=n_processed, pes0=None, rg_id="")
     t2 = clock()
     records = [s.sam.encode() for s in batch]
     for s in batch:

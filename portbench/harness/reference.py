@@ -23,6 +23,9 @@ nothing of the program:
 - ``proper_miss``: sampled pairs placed at their origin, with an insert
   within two standard deviations of the mix's mean, that are not flagged
   as a proper pair.
+
+Those are check_pairs' numbers; checks/reads.py judges single reads by the
+same rules (``lines``, ``aligned``, ``at_origin``, ``score_misses``).
 """
 
 from __future__ import annotations
@@ -69,29 +72,43 @@ def local_best(reads: np.ndarray, wins: np.ndarray, a: int, b: int,
 
 
 def origin_windows(genome: np.ndarray, start: np.ndarray, end: np.ndarray,
-                   rev: np.ndarray) -> np.ndarray:
-    """Reference windows around each read's origin [start, end], reverse
-    complemented where the read is: the read aligns to it as sequenced."""
-    width = int((end - start).max()) + 1 + 2 * WINDOW_PAD
+                   rev: np.ndarray, pad=WINDOW_PAD) -> np.ndarray:
+    """Reference windows around each read's origin [start, end], pad bases
+    (one for all, or one a read) on either side and all as wide as the
+    widest, reverse complemented where the read is: the read aligns to it
+    as sequenced."""
+    width = int((end - start + 2 * pad).max()) + 1
     k = np.arange(width)
-    lo = np.maximum(start - WINDOW_PAD, 0)
+    lo = np.maximum(start - pad, 0)
     idx = np.minimum(lo[:, None] + k, len(genome) - 1)
     win = genome[idx]
     back = np.where(win[:, ::-1] < 4, 3 - win[:, ::-1], 4)
     return np.where(rev[:, None], back, win).astype(np.uint8)
 
 
-def _primary(text: str):
-    """The one primary record's fields, or None."""
-    prim = []
+def lines(text: str):
+    """Each line's fields, or None if a line is no SAM record."""
+    out = []
     for line in text.split("\n"):
         if not line:
             continue
         f = line.split("\t")
         if len(f) < 11 or not f[1].isdigit():
             return None
-        if not int(f[1]) & 0x900:
-            prim.append(f)
+        out.append(f)
+    return out
+
+
+def primaries(fields) -> list:
+    """The lines that are neither secondary (0x100) nor supplementary
+    (0x800)."""
+    return [f for f in fields if not int(f[1]) & 0x900]
+
+
+def _primary(text: str):
+    """The one primary record's fields, or None."""
+    fields = lines(text)
+    prim = primaries(fields) if fields is not None else []
     return prim[0] if len(prim) == 1 else None
 
 
@@ -147,6 +164,63 @@ def walk(ops, seq: str, genome: np.ndarray, pos0: int):
     return q, r, nm, "".join(md)
 
 
+def aligned(f, n_read: int, genome: np.ndarray, contig: str):
+    """walk's (read bases consumed, reference bases consumed, NM, MD) of a
+    mapped line, if its CIGAR consumes the read's n_read bases (hard clips,
+    which SEQ leaves out, counted), its NM and MD are what the CIGAR at POS
+    gives and its AS is a number; else None."""
+    ops = _cigar(f[5])
+    if not ops or f[2] != contig or not f[3].isdigit() or int(f[3]) < 1:
+        return None
+    lo = int(ops[0][1] == "H")  # hard clips stand only at either end
+    hi = len(ops) - int(len(ops) > lo and ops[-1][1] == "H")
+    got = walk(ops[lo:hi], f[9], genome, int(f[3]) - 1)
+    tags = _tags(f)
+    clipped = sum(n for n, _ in ops[:lo] + ops[hi:])
+    if (got is None or got[0] + clipped != n_read
+            or tags.get("NM") != str(got[2]) or tags.get("MD") != got[3]
+            or not tags.get("AS", "x").lstrip("-").isdigit()):
+        return None
+    return got
+
+
+def at_origin(f, got, start: int, end: int, rev: bool,
+              slack: int = ORIGIN_SLACK) -> bool:
+    """Whether an aligned line sits on the read's strand with its 5' end
+    within slack bases of the origin's."""
+    p0 = int(f[3]) - 1
+    return bool(int(f[1]) & 0x10) == rev and (
+        abs(p0 + got[1] - 1 - end) <= slack if rev
+        else abs(p0 - start) <= slack)
+
+
+def score_misses(rows, genome: np.ndarray, scoring: dict,
+                 pad=WINDOW_PAD) -> int:
+    """Reads whose primary line falls short of the best local alignment at
+    the origin (local_best over origin_windows): placed at the origin with
+    an AS other than that best, or elsewhere (or unmapped, AS 0) with an AS
+    below it. rows hold (read codes, rev, start, end, primary line or None,
+    at origin); reads of other lengths are padded with N, which no local
+    alignment ends on."""
+    width = max(len(r[0]) for r in rows)
+    reads = np.full((len(rows), width), 4, np.uint8)
+    for i, r in enumerate(rows):
+        reads[i, : len(r[0])] = r[0]
+    rev = np.array([r[1] for r in rows])
+    start = np.array([r[2] for r in rows], np.int64)
+    end = np.array([r[3] for r in rows], np.int64)
+    best = local_best(reads, origin_windows(genome, start, end, rev, pad),
+                      scoring["a"], scoring["b"], scoring["o"], scoring["e"])
+    miss = 0
+    for (_, _, _, _, f, origin), s in zip(rows, best):
+        sc = 0
+        if f is not None and not int(f[1]) & 0x4:
+            sc = int(_tags(f)["AS"])
+        if (sc != s) if origin else (sc < s):
+            miss += 1
+    return miss
+
+
 def _tlen(p, m) -> int:
     """bwa's TLEN of record p against its mate m (both mapped, one
     contig): the distance between their 5' ends (mem_aln2sam)."""
@@ -165,8 +239,6 @@ def check_pairs(sample, pairs, genome: np.ndarray, scoring: dict,
     """Numbers of the sampled pairs: sample holds (pair index, R1's SAM
     text, R2's SAM text); pairs is the simulator's record (simulate.Pairs);
     genome the reference as codes."""
-    a, b = scoring["a"], scoring["b"]
-    o, e = scoring["o"], scoring["e"]
     bad_records = bad_alignment = bad_mate = 0
     rows = []  # (read codes, rev, start, end, fields or None)
     proper_miss = 0
@@ -193,45 +265,23 @@ def check_pairs(sample, pairs, genome: np.ndarray, scoring: dict,
             if not ok:
                 bad_records += 1
                 f = None
-            at_origin = False
+            origin = False
             if f is not None and not int(f[1]) & 0x4:
-                tags = _tags(f)
-                ops = _cigar(f[5])
-                got = (walk(ops, f[9], genome, int(f[3]) - 1)
-                       if ops and f[2] == contig and f[3].isdigit()
-                       and int(f[3]) >= 1 else None)
-                if (got is None or got[0] != len(read)
-                        or tags.get("NM") != str(got[2])
-                        or tags.get("MD") != got[3]
-                        or not tags.get("AS", "x").lstrip("-").isdigit()):
+                got = aligned(f, len(read), genome, contig)
+                if got is None:
                     bad_alignment += 1
                     f = None
                 else:
-                    p0 = int(f[3]) - 1
-                    at_origin = (bool(int(f[1]) & 0x10) == rev and (
-                        abs(p0 + got[1] - 1 - end) <= ORIGIN_SLACK if rev
-                        else abs(p0 - start) <= ORIGIN_SLACK))
+                    origin = at_origin(f, got, start, end, rev)
             prims.append(f)
-            rows.append((codes, rev, start, end, f, at_origin))
+            rows.append((codes, rev, start, end, f, origin))
         bad_mate += _mate_faults(prims)
         p, m = prims
         if (abs(isize - insert_mean) <= 2 * insert_sd and p is not None
                 and m is not None and rows[-1][5] and rows[-2][5]):
             if not int(p[1]) & 0x2 or not int(m[1]) & 0x2:
                 proper_miss += 1
-    reads = np.stack([r[0] for r in rows])
-    rev = np.array([r[1] for r in rows])
-    start = np.array([r[2] for r in rows], np.int64)
-    end = np.array([r[3] for r in rows], np.int64)
-    best = local_best(reads, origin_windows(genome, start, end, rev),
-                      a, b, o, e)
-    miss = 0
-    for (_, _, _, _, f, at_origin), s in zip(rows, best):
-        sc = 0
-        if f is not None and not int(f[1]) & 0x4:
-            sc = int(_tags(f)["AS"])
-        if (sc != s) if at_origin else (sc < s):
-            miss += 1
+    miss = score_misses(rows, genome, scoring)
     return {
         "bad_records": bad_records,
         "bad_alignment": bad_alignment,

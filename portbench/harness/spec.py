@@ -1,10 +1,11 @@
 """What a run measures, found by name: the cell in BENCHMARK.json, its
-configuration (configs/<name>.json), its traffic mix (traffic/<name>.json)
+configuration (configs/<name>.json), its traffic mix (traffic/<name>.json),
+the mix's generator (generators/<name>.py) and check (checks/<name>.py),
 and each metric's reader (metrics/<name>.py, a ``read(run)`` that returns
 a number, or None when it finds nothing to read).
 
-Adding a configuration, a mix, a cell or a metric adds files and entries;
-no file here changes.
+Adding a configuration, a mix, a generator, a check, a cell or a metric
+adds files and entries; no file here changes.
 """
 
 from __future__ import annotations
@@ -59,14 +60,25 @@ def load_cell(name: str, root: str = ROOT, bench: str = BENCH) -> Cell:
                 traffic, e2e, per_layer)
 
 
-def reader(metric: str, bench: str = BENCH):
-    """metrics/<metric>.py's read function."""
-    path = os.path.join(bench, "metrics", metric + ".py")
-    mod_name = "portbench_metric_" + metric.replace(".", "_").replace("-", "_")
+def module(kind: str, name: str, bench: str = BENCH):
+    """<kind>/<name>.py of the benchmark, loaded from its file."""
+    path = os.path.join(bench, kind, name + ".py")
+    mod_name = f"portbench_{kind}_" + name.replace(".", "_").replace("-", "_")
     sp = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(sp)
     sp.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def mix_module(traffic: dict, kind: str, bench: str = BENCH):
+    """The mix's generator or check (kind), by the name the traffic file
+    gives under that key; a file that names none takes the paired ones."""
+    return module(kind + "s", traffic.get(kind, "pairs"), bench)
+
+
+def reader(metric: str, bench: str = BENCH):
+    """metrics/<metric>.py's read function."""
+    return module("metrics", metric, bench).read
 
 
 def read_metrics(entries, run, bench: str = BENCH) -> dict:

@@ -17,8 +17,6 @@ import time
 
 import numpy as np
 
-from .simulate import pair_name
-
 clock = time.perf_counter
 cpu_clock = time.process_time  # the process's CPU seconds, all threads
 
@@ -61,37 +59,44 @@ def worker_chunks(wi: int, nw: int, n_pool: int, first: int = 0):
 
 
 class Sink:
-    """Takes each chunk run's records: counts the reads whose record is
-    missing or names another read, and keeps the sampled pairs' text.
+    """Takes each chunk run's records, one a read (a read's record holds
+    its primary line and any supplementary ones): counts the reads whose
+    record is missing or names another read, and keeps the sampled units'
+    text.
 
-    first_pair[ci] is the pool index of chunk ci's first pair; a chunk run
-    k keeps per_run pairs drawn from (seed, k)."""
+    pool (simulate.Pool) lays out the chunks: each chunk's first unit and
+    units, the reads a unit and each unit's QNAME; a chunk run k keeps
+    per_run units drawn from (seed, k)."""
 
-    def __init__(self, first_pair, pairs_in, seed: int, per_run: int):
-        self.first_pair = first_pair
-        self.pairs_in = pairs_in
+    def __init__(self, pool, seed: int, per_run: int):
+        self.first = pool.first
+        self.units = pool.units
+        self.per_unit = pool.per_unit
+        self.name = pool.name
+        self.reads = pool.reads
         self.seed = seed
         self.per_run = per_run
         self.lock = threading.Lock()
         self.missing = 0
-        self.samples: list = []  # (run, pair index, R1 text, R2 text)
+        self.samples: list = []  # (run, unit index, each read's text)
 
     def put(self, run: int, ci: int, records) -> int:
         """Takes a chunk run's records; returns the reads left without
         theirs."""
-        p0 = int(self.first_pair[ci])
-        n = int(self.pairs_in[ci])
+        u0 = int(self.first[ci])
+        n = int(self.units[ci])
+        per = self.per_unit
         missing = 0
         for i, rec in enumerate(records):
-            if not rec.startswith(pair_name(p0 + (i >> 1)) + b"\t"):
+            if not rec.startswith(self.name(u0 + i // per) + b"\t"):
                 missing += 1
-        missing += max(0, 2 * n - len(records))
+        missing += max(0, int(self.reads[ci]) - len(records))
         rng = np.random.default_rng([self.seed, run])
         pick = rng.choice(n, min(self.per_run, n), replace=False)
-        kept = [(run, p0 + int(j),
-                 records[2 * j].decode() if 2 * j < len(records) else "",
-                 records[2 * j + 1].decode()
-                 if 2 * j + 1 < len(records) else "")
+        kept = [(run, u0 + int(j),
+                 *(records[per * j + m].decode()
+                   if per * j + m < len(records) else ""
+                   for m in range(per)))
                 for j in pick]
         with self.lock:
             self.missing += missing
@@ -99,7 +104,8 @@ class Sink:
         return missing
 
     def sample(self, n: int) -> list:
-        """n of the kept pairs, drawn from the seed: (pair, R1, R2)."""
+        """n of the kept units, drawn from the seed: (unit, each read's
+        text)."""
         kept = sorted(self.samples)
         rng = np.random.default_rng([self.seed, 1 << 40])
         pick = rng.choice(len(kept), min(n, len(kept)), replace=False)
@@ -107,11 +113,10 @@ class Sink:
 
 
 def run_window(run_chunk, workers, n_pool: int, seconds: float, sink,
-               pairs_in, first: int = 0, max_rounds: "int | None" = None
-               ) -> Window:
+               first: int = 0, max_rounds: "int | None" = None) -> Window:
     """Run the window with one thread a worker. run_chunk(worker, chunk)
-    returns (records, parse seconds); with max_rounds each worker stops
-    after that many chunks (the warm-up)."""
+    returns (records, parse seconds); a chunk's reads are the sink's; with
+    max_rounds each worker stops after that many chunks (the warm-up)."""
     nw = len(workers)
     lock = threading.Lock()
     tot = {"reads": 0, "attempted": 0, "chunks": 0, "parse": 0.0,
@@ -127,12 +132,12 @@ def run_window(run_chunk, workers, n_pool: int, seconds: float, sink,
                                      and k >= max_rounds * nw):
                 return
             with lock:
-                tot["attempted"] += 2 * int(pairs_in[ci])
+                tot["attempted"] += int(sink.reads[ci])
             records, parse = run_chunk(workers[wi], ci)
             missing = sink.put(k, ci, records)
             t = clock()
             with lock:
-                tot["reads"] += 2 * int(pairs_in[ci]) - missing
+                tot["reads"] += int(sink.reads[ci]) - missing
                 tot["chunks"] += 1
                 tot["parse"] += parse
                 tot["end"] = max(tot["end"], t)

@@ -23,8 +23,8 @@ def _cpu(monkeypatch):
     monkeypatch.setenv("MPIBWA_TORCH_DEVICE", "cpu")
 
 
-def _run(seed, options=None, device=None):
-    out, lines = C.measure(load_cell(CELL), seed, SECONDS, False, True, 0.0,
+def _run(seed, options=None, device=None, cell=CELL):
+    out, lines = C.measure(load_cell(cell), seed, SECONDS, False, True, 0.0,
                            options=options, device=device)
     assert out is not None, lines
     return out
@@ -34,8 +34,10 @@ def _checks(out):
     return {k: c["value"] for k, c in out["checks"].items()}
 
 
-def test_the_program_passes_and_loads_no_jax():
-    out = _run(2**31 + 5)
+@pytest.mark.parametrize("cell", ["int32.pe101", "int64.pe101",
+                                  "int32.se101"])
+def test_the_program_passes_and_loads_no_jax(cell):
+    out = _run(2**31 + 5, cell=cell)
     assert out["correct"], out["checks"]
     assert out["attempted"] > 0 and out["failed"] == 0
     assert out["metrics"] == {} and "device" not in out
@@ -43,33 +45,37 @@ def test_the_program_passes_and_loads_no_jax():
     assert C.loaded_jax() == []
 
 
-def _control(device):
-    out = _run(2**31 + 6, options={"w": 0}, device=device)
+def _control(device, cell=CELL):
+    out = _run(2**31 + 6, options={"w": 0}, device=device, cell=cell)
     assert not out["correct"]
     got = _checks(out)
     assert got["score_miss_pct"] > out["checks"]["score_miss_pct"]["limit"]
 
 
-def test_the_control_fails():
-    _control(None)
+@pytest.mark.parametrize("cell", ["int32.pe101", "int32.se101"])
+def test_the_control_fails(cell):
+    _control(None, cell)
 
 
 @pytest.mark.gpu
-def test_the_control_fails_on_the_card():
+@pytest.mark.parametrize("cell", ["int32.pe101", "int32.se101"])
+def test_the_control_fails_on_the_card(cell):
     torch = pytest.importorskip("torch")
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
-    _control(torch.device("cuda", 0))
+    _control(torch.device("cuda", 0), cell)
 
 
 def _faulty(kind):
     real = program.run_chunk
     state = {}
 
-    def run_chunk(al, plan, ci, clock, spans=None):
-        records, parse = real(al, plan, ci, clock, spans)
+    def run_chunk(al, plan, ci, clock, *rest):
+        records, parse = real(al, plan, ci, clock, *rest)
         if kind == "half":  # half of the batch left out
             records = records[: len(records) // 2]
+        elif kind == "dropped":  # one read's record left out
+            del records[len(records) // 2]
         elif kind == "stale":  # the step returns its last state unchanged
             records, state["last"] = state.get("last", records), records
         elif kind == "altered":  # every 7th answer's POS moved by one
@@ -82,12 +88,17 @@ def _faulty(kind):
     return run_chunk
 
 
-@pytest.mark.parametrize("kind,number", [("half", "missing_records"),
-                                         ("stale", "missing_records"),
-                                         ("altered", "bad_alignment")])
-def test_each_fault_fails(monkeypatch, kind, number):
+@pytest.mark.parametrize("cell,kind,number", [
+    ("int32.pe101", "half", "missing_records"),
+    ("int32.pe101", "stale", "missing_records"),
+    ("int32.pe101", "altered", "bad_alignment"),
+    ("int32.se101", "half", "missing_records"),
+    ("int32.se101", "stale", "missing_records"),
+    ("int32.se101", "dropped", "missing_records"),
+    ("int32.se101", "altered", "bad_alignment")])
+def test_each_fault_fails(monkeypatch, cell, kind, number):
     monkeypatch.setattr(program, "run_chunk", _faulty(kind))
-    out = _run(2**31 + 7)
+    out = _run(2**31 + 7, cell=cell)
     assert not out["correct"]
     assert _checks(out)[number] > 0
 

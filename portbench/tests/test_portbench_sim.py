@@ -8,10 +8,19 @@ import pytest
 
 from conftest import BENCH
 from harness import genome as G
-from harness.simulate import (INDEL_MAX, SPARE, _lengths, fastq_bytes,
-                              pair_name, pairs_per_chunk, simulate_pairs)
+from harness.simulate import (INDEL_MAX, SPARE, _lengths, chunk_counts,
+                              fastq_bytes, pair_name, pairs_per_chunk,
+                              read_lengths, read_name, simulate_pairs,
+                              simulate_reads)
 
 TRAFFIC = json.load(open(os.path.join(BENCH, "traffic", "pe101.json")))
+SE = json.load(open(os.path.join(BENCH, "traffic", "se101.json")))
+# PBSIM's continuous long reads: its default accuracy and error ratio (Ono,
+# Asai and Hamada 2013), lengths 500-3,000 bp
+CLR = {"length": {"dist": "lognormal", "mean": 1500, "sd": 700, "min": 500,
+                  "max": 3000},
+       "accuracy": {"mean": 0.78, "sd": 0.02, "min": 0.75},
+       "error_ratio": {"sub": 10, "ins": 60, "del": 30}}
 SPEC = json.load(open(os.path.join(BENCH, "configs",
                                    "hs249m-int32.json")))["genome"]
 
@@ -64,13 +73,60 @@ def test_error_free_reads_are_the_fragment_ends():
 
 
 def test_fastq_records_and_chunk_size():
-    reads = np.array([[0, 1, 2, 3]], np.uint8)
-    assert fastq_bytes(reads, 12) == b"@p000000012\nACGT\n+\nIIII\n"
-    assert pair_name(12) == b"p000000012"
+    reads = np.array([0, 1, 2, 3, 3, 2, 1, 0], np.uint8)
+    assert fastq_bytes(reads, np.array([0, 4, 8])) == (
+        b"@p000000000\nACGT\n+\nIIII\n@p000000001\nTGCA\n+\nIIII\n")
+    assert fastq_bytes(reads[:5], np.array([0, 3, 4, 5]), b"r") == (
+        b"@r000000000\nACG\n+\nIII\n@r000000001\nT\n+\nI\n"
+        b"@r000000002\nT\n+\nI\n")
+    assert pair_name(12) == b"p000000012" and read_name(3) == b"r000000003"
     # equal-size paired files: a chunk closes once both mates' bases
     # pass half of -K
     assert pairs_per_chunk(10_000_000, 101) == 24_753
     assert 202 * 24_753 > 5_000_000 >= 202 * 24_752
+    # single reads: a chunk closes at the read that passes -K
+    lengths = read_lengths(9, SE, 10_000_000, 2)
+    assert (lengths == 101).all() and len(lengths) == 2 * 99_010
+    assert chunk_counts(lengths, 10_000_000).tolist() == [99_010, 99_010]
+    assert 101 * 99_010 > 10_000_000 >= 101 * 99_009
+    assert chunk_counts(np.array([5, 3, 4, 9, 1, 1]), 7).tolist() == [2, 2]
+
+
+def test_single_reads_follow_the_model_and_their_origin():
+    g = _genome()
+    lengths = read_lengths(4, SE, 200_000, 3)
+    r = simulate_reads(g, lengths, 2**40 + 3, SE)
+    again = simulate_reads(g, lengths, 2**40 + 3, SE)
+    assert np.array_equal(r.seq, again.seq)
+    assert np.array_equal(r.start, again.start)
+    assert abs(r.rev.mean() - 0.5) < 0.03
+    assert abs(r.subs.mean() / 101 - 0.015) < 0.002
+    assert abs((r.ins + r.dels).mean() / (101 + SPARE) - 0.002) < 0.001
+    clean = simulate_reads(g, lengths, 5, dict(SE, sub_rate=0.0,
+                                               indel_rate=0.0))
+    for i in range(300):
+        src = g[clean.start[i]: clean.end[i] + 1]
+        want = 3 - src[::-1] if clean.rev[i] else src
+        assert np.array_equal(clean.read(i), want)
+
+
+def test_long_reads_keep_their_lengths_and_error_ratio():
+    g = _genome()
+    lengths = read_lengths(2**33 + 1, CLR, 400_000, 3)
+    assert lengths.min() >= 500 and lengths.max() <= 3000
+    assert chunk_counts(lengths, 400_000).size == 3
+    assert abs(np.mean(lengths) - 1500) < 100
+    r = simulate_reads(g, lengths, 2**33 + 1, CLR)
+    assert np.array_equal(r.lengths, lengths)
+    errs = np.array([r.subs.sum(), r.ins.sum(), r.dels.sum()], float)
+    # the stated 10:60:30 within 2 points each, and 22% errors a base
+    assert np.abs(errs / errs.sum() - [0.1, 0.6, 0.3]).max() < 0.02
+    assert abs(errs.sum() / lengths.sum() - 0.22 / (1 - 0.066)) < 0.02
+    # no read's origin touches an N; its span follows its indels
+    span = r.end - r.start + 1
+    assert np.abs(span - (lengths - r.ins + r.dels)).max() <= 2
+    for i in range(len(r)):
+        assert (g[r.start[i]: r.end[i] + 1] < 4).all()
 
 
 def test_genome_is_deterministic_with_its_holes():

@@ -16,8 +16,9 @@ ROOT = spec.ROOT
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 JAX = {"jax", "jaxlib", "flax", "mpibwa_tpu"}
-PLAIN = ("genome.py", "simulate.py", "reference.py", "window.py",
-         "trace.py", "spec.py")
+PLAIN = ("harness/genome.py", "harness/simulate.py", "harness/reference.py",
+         "harness/window.py", "harness/trace.py", "harness/spec.py",
+         "generators", "checks")
 
 
 def _bench():
@@ -40,8 +41,11 @@ def test_names_units_and_entries_keep_to_the_rules():
     for w in b["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert w["config"] in names and w["chips"] in (1, 4)
-        assert os.path.exists(os.path.join(BENCH, "traffic",
-                                           w["traffic"] + ".json"))
+        tr = json.load(open(os.path.join(BENCH, "traffic",
+                                         w["traffic"] + ".json")))
+        for kind in ("generator", "check"):  # found by name
+            assert os.path.exists(os.path.join(
+                BENCH, kind + "s", tr.get(kind, "pairs") + ".py"))
         names += [w["name"], w["traffic"]]
     cells = [w["name"] for w in b["workloads"]]
     e2e = {m["name"]: m.get("workloads", cells) for m in b["end_to_end"]}
@@ -83,11 +87,14 @@ def _imports(path):
 
 
 def _relative(path):
-    """What a module imports from its own package (from . import x)."""
+    """What a module imports from the harness package: from . import x in
+    it, from harness import x outside it."""
     for node in ast.walk(ast.parse(open(path).read())):
         if isinstance(node, ast.ImportFrom) and node.level:
             yield from ([node.module] if node.module else
                         [a.name for a in node.names])
+        elif isinstance(node, ast.ImportFrom) and node.module == "harness":
+            yield from (a.name for a in node.names)
 
 
 def _py_files():
@@ -103,10 +110,15 @@ def test_nothing_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_and_the_yardstick_import_nothing_of_the_program():
+    paths = []
     for f in PLAIN:
-        path = os.path.join(BENCH, "harness", f)
-        assert "mpibwa_tpu_torch" not in set(_imports(path)), f
-        assert "program" not in set(_relative(path)), f
+        path = os.path.join(BENCH, f)
+        paths += ([os.path.join(path, g) for g in sorted(os.listdir(path))
+                   if g.endswith(".py")] if os.path.isdir(path) else [path])
+    assert len(paths) >= len(PLAIN) + 2
+    for path in paths:
+        assert "mpibwa_tpu_torch" not in set(_imports(path)), path
+        assert not {"program", "cell"} & set(_relative(path)), path
 
 
 def test_a_new_config_mix_cell_and_metric_are_found_by_name(tmp_path):
@@ -120,7 +132,11 @@ def test_a_new_config_mix_cell_and_metric_are_found_by_name(tmp_path):
     (bench / "configs" / "toy.json").write_text(
         json.dumps(dict(cfg, genome_length=1000)))
     (bench / "traffic" / "toy-mix.json").write_text(
-        json.dumps({"read_len": 50, "limits": {}}))
+        json.dumps({"read_len": 50, "limits": {}, "generator": "toy_gen",
+                    "check": "toy_check"}))
+    (bench / "generators" / "toy_gen.py").write_text("PAIRED = False\n")
+    (bench / "checks" / "toy_check.py").write_text(
+        "def check(*args):\n    return {}\n")
     (bench / "metrics" / "toy_metric.py").write_text(
         "def read(run):\n"
         "    return run.reads * 2.0 if run.cell == 'toy.cell' else None\n")
@@ -144,6 +160,11 @@ def test_a_new_config_mix_cell_and_metric_are_found_by_name(tmp_path):
     cell = spec.load_cell("toy.cell", str(root), str(bench))
     assert cell.config["genome_length"] == 1000
     assert cell.traffic["read_len"] == 50
+    assert not spec.mix_module(cell.traffic, "generator", str(bench)).PAIRED
+    assert spec.mix_module(cell.traffic, "check", str(bench)).check() == {}
+    # a mix that names neither takes the paired generator and check
+    pe = spec.load_cell(b["workloads"][0]["name"], str(root), str(bench))
+    assert spec.mix_module(pe.traffic, "generator", str(bench)).PAIRED
     names = [m["name"] for m in cell.per_layer]
     assert "toy_metric" in names and "toy_silent" in names
 
@@ -161,14 +182,15 @@ def test_a_new_config_mix_cell_and_metric_are_found_by_name(tmp_path):
 @pytest.mark.parametrize("cell, e2e, some_layers", [
     ("int32.pe101", ["device_peak_gib", "setup_s"], ["window_reads_per_s"]),
     ("int64.pe101", ["reads_per_s", "device_peak_gib", "setup_s"],
-     ["parse_s_per_mread", "device_idle_share"])])
+     ["parse_s_per_mread", "device_idle_share"]),
+    ("int32.se101", ["device_peak_gib", "setup_s"], ["window_reads_per_s"])])
 def test_each_cell_reports_the_metrics_that_list_it(cell, e2e, some_layers):
     c = spec.load_cell(cell)
     assert [m["name"] for m in c.end_to_end] == e2e
     layers = [m["name"] for m in c.per_layer]
     assert set(some_layers) <= set(layers)
     assert all(m["moves"] in e2e for m in c.per_layer)
-    if cell == "int32.pe101":
+    if cell.startswith("int32."):
         assert layers == ["window_reads_per_s"]
 
 

@@ -6,12 +6,17 @@ import numpy as np
 import pytest
 
 from harness import trace as T
-from harness.simulate import pair_name
+from harness.simulate import Pool, pair_name, read_name
 from harness.window import Sink, run_window, worker_chunks
 
 
 def _records(first, n_pairs):
     return [pair_name(first + (i >> 1)) + b"\t0\n" for i in range(2 * n_pairs)]
+
+
+def _pool(first, units, per_unit=2, name=pair_name):
+    return Pool(None, [], np.asarray(first), np.asarray(units), per_unit,
+                [0] * len(first), name)
 
 
 def test_workers_take_chunks_round_robin_over_the_cycled_pool():
@@ -28,8 +33,8 @@ def test_no_chunk_starts_after_the_window_and_all_started_finish():
         time.sleep(0.05)
         return _records(int(first[0][ci]), 10), 0.001
 
-    sink = Sink(first[0], first[1], 3, 2)
-    win = run_window(chunk, [0, 1], 3, 0.3, sink, first[1])
+    sink = Sink(_pool(*first), 3, 2)
+    win = run_window(chunk, [0, 1], 3, 0.3, sink)
     assert max(starts) < win.start + 0.3
     assert win.end >= max(starts) + 0.05
     assert win.chunks == len(starts) and win.reads == 20 * len(starts)
@@ -48,8 +53,8 @@ def test_cpu_time_counts_the_workers_work_and_not_their_sleep():
         time.sleep(0.1)  # a wait on the device or a file costs no CPU
         return _records(int(first[0][ci]), 10), 0.0
 
-    win = run_window(chunk, [0, 1], 2, float("inf"),
-                     Sink(first[0], first[1], 3, 0), first[1], max_rounds=2)
+    win = run_window(chunk, [0, 1], 2, float("inf"), Sink(_pool(*first), 3, 0),
+                     max_rounds=2)
     assert win.chunks == 4
     assert 0.2 <= win.cpu_s < 0.2 + 0.1 * win.chunks
 
@@ -71,13 +76,13 @@ def test_warm_up_takes_one_chunk_a_worker():
         seen.append((w, ci))
         return _records(int(first[0][ci]), 10), 0.0
 
-    run_window(chunk, ["a", "b"], 3, float("inf"),
-               Sink(first[0], first[1], 3, 0), first[1], max_rounds=1)
+    run_window(chunk, ["a", "b"], 3, float("inf"), Sink(_pool(*first), 3, 0),
+               max_rounds=1)
     assert sorted(seen) == [("a", 0), ("b", 1)]
 
 
 def test_sink_counts_missing_and_misnamed_records_and_samples():
-    sink = Sink(np.array([0, 8]), np.array([8, 8]), 11, 3)
+    sink = Sink(_pool([0, 8], [8, 8]), 11, 3)
     recs = _records(8, 8)
     recs[3] = b""
     recs[5] = pair_name(0) + b"\t0\n"
@@ -86,6 +91,18 @@ def test_sink_counts_missing_and_misnamed_records_and_samples():
     got = sink.sample(2)
     assert len(got) == 2 and all(8 <= p < 16 for p, _, _ in got)
     assert sink.sample(2) == got
+
+
+def test_sink_takes_single_reads_with_supplementary_lines():
+    full = [read_name(5 + i) + b"\t0\n" for i in range(7)]
+    full[2] += read_name(7) + b"\t2048\n"  # a supplementary line
+    sink = Sink(_pool([0, 5], [5, 7], 1, read_name), 11, 7)
+    assert sink.reads.tolist() == [5, 7]
+    assert sink.put(0, 1, full) == 0
+    assert (7, full[2].decode()) in sink.sample(7)
+    dropped = full[:4] + full[5:]  # read 9's record left out
+    assert sink.put(1, 1, dropped) == 3  # it and the two after it
+    assert sink.missing == 3
 
 
 def test_union_gaps_and_open_spans():

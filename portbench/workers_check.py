@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Whether the cell's workers change the output: `cli mem` with the
-configuration's -t against -t 1, on the same seed's chunks.
+configuration's options against the same with -t 1, on the same seed's
+chunks of the cell's mix.
 
     python3 portbench/workers_check.py --workload int32.pe101 --seed 5 \
         --chunks 4 [--rehearse]
@@ -36,8 +37,8 @@ def main(argv=None) -> int:
 
     run_mod.caches()
     from harness import cell as C
-    from harness.simulate import fastq_bytes, pairs_per_chunk, simulate_pairs
-    from harness.spec import load_cell
+    from harness import program
+    from harness.spec import load_cell, mix_module
 
     cell = load_cell(args.workload)
     cfg = cell.config
@@ -49,33 +50,28 @@ def main(argv=None) -> int:
          else int(cfg["genome_length"]))
     codes, ref = C.reference_genome(cfg["genome"], n)
     K = C.REHEARSAL["K"] if args.rehearse else int(cfg["chunk_bases"])
-    per = pairs_per_chunk(K, int(cell.traffic["read_len"]))
-    pairs = simulate_pairs(codes, args.chunks * per,
-                           C.seed_entropy(args.seed), cell.traffic)
     env = dict(os.environ)
     if args.rehearse:
         env["MPIBWA_TORCH_DEVICE"] = "cpu"
     out = {}
     with tempfile.TemporaryDirectory(prefix="portbench-") as tmp:
-        fq = []
-        for m, reads in ((1, pairs.r1), (2, pairs.r2)):
-            fq.append(os.path.join(tmp, f"r{m}.fq"))
-            with open(fq[-1], "wb") as fh:
-                fh.write(fastq_bytes(reads, 0))
+        pool = mix_module(cell.traffic, "generator").pool(
+            codes, C.seed_entropy(args.seed), cell.traffic, K, args.chunks,
+            tmp)
         sams = {}
         for t in (int(cfg["mem_options"]["t"]), 1):
             o = os.path.join(tmp, f"t{t}")
+            argv = program.mem_argv(dict(cfg["mem_options"], t=t, K=K))
             t0 = time.time()
             subprocess.run([sys.executable, "-m", "mpibwa_tpu_torch.cli",
-                            "mem", "-t", str(t), "-K", str(K), "-v", "1",
-                            "-o", o, ref] + fq, check=True, cwd=ROOT,
-                           env=env)
+                            "mem", *argv, "-v", "1", "-o", o, ref]
+                           + pool.paths, check=True, cwd=ROOT, env=env)
             out[f"t{t}_s"] = time.time() - t0
             with open(o + ".sam", "rb") as fh:
                 sams[t] = b"".join(ln for ln in fh
                                    if not ln.startswith(b"@PG"))
         a, b = sams.values()
-        out.update(same=a == b, bytes=len(a), reads=2 * len(pairs))
+        out.update(same=a == b, bytes=len(a), reads=int(pool.reads.sum()))
     print(json.dumps(out), flush=True)
     return 0 if out["same"] else 1
 
